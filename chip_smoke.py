@@ -7,8 +7,10 @@ Phases, in order; any failure raises and exits non-zero:
   1. the card, from nvidia-smi, with the torch and CUDA versions;
   2. build the CUDA ingest kernel (csrc/resize_norm.cu) from the checkout;
   3. hold the kernel against its plain PyTorch version at the mug shape
-     (B 16, T 16, 96 -> 64 px, C 3) and time kernel, plain version and the
-     library yardstick (F.interpolate) with CUDA events;
+     (B 16, T 16, 96 -> 64 px, C 3) and at the scaled shape (B 8, T 32,
+     128 -> 96 px, C 3), and time kernel, plain version and the library
+     yardstick (F.interpolate) with CUDA events, each rotating over the same
+     8 batch plans so that none sits in L2;
   4. render a 96 px synthetic uint8 clip store and train the full-width mug
      model (fp32, batch 16, 16 steps per call) through the device-cached
      trainer; the kernel's launch count must equal the steps taken;
@@ -34,30 +36,60 @@ GENERATE_TOL = 1e-4     # 4 BN-normalized deconv stages, card vs CPU fp32
 TRAIN_CALLS = 5         # trainer calls of k = 16 steps; the first warms up
 
 
-def _rates(smi_name: str):
-    """(bytes/s, fp32 FLOP/s without tensor cores) from the data sheet.
+# nvidia-smi name -> (bytes/s, fp32 FLOP/s without tensor cores), from the
+# data sheets; a card not listed gets no bound.
+RATES = {
+    "NVIDIA H100 80GB HBM3": (3.35e12, 67e12),
+    "NVIDIA H100 PCIe": (2.0e12, 51e12),
+    "NVIDIA H100 NVL": (3.9e12, 60e12),
+    "NVIDIA H200": (4.8e12, 67e12),
+}
 
-    Only the H100 SXM has been measured; any other card raises until it is.
-    """
-    if smi_name == "NVIDIA H100 80GB HBM3":
-        return 3.35e12, 67e12
-    raise RuntimeError(f"no memory and fp32 rates known for {smi_name!r}")
 
+def _time_ms(fn, n: int, warmup: int = 3):
+    """(device ms per call, host ms per call) of n calls fn(0..n-1).
 
-def _time_ms(fn, n: int, warmup: int = 3) -> float:
+    The calls are queued behind a spin kernel, so the card runs them back
+    to back and the events time the device, not the host's launch rate."""
     import torch
 
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(n):
-        fn(i)
-    end.record()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    cycles = 20_000_000
+    while True:
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for i in range(n):
+            fn(i)
+        ev[2].record()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        if host_ms < ev[0].elapsed_time(ev[1]):   # the queue never drained
+            return ev[1].elapsed_time(ev[2]) / n, host_ms / n
+        cycles *= 4
+
+
+def _check_kernel(pool, clip_ix, frame_ix, rh, rw, what) -> float:
+    """Max abs error of the kernel against its plain version; raises past
+    KERNEL_TOL."""
+    import torch
+
+    from mocogan_tpu_torch.ops import preproc
+
+    got = preproc.resize_normalize_gather_cuda(pool, clip_ix, frame_ix, rh, rw)
+    want = preproc.resize_normalize_gather_plain(pool, clip_ix, frame_ix, rh,
+                                                 rw)
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
+    err = float((got - want).abs().max())
+    print(f"[kernel] resize_norm vs plain at the {what} shape "
+          f"{tuple(got.shape)}: max_abs_err {err:.3e} (tol {KERNEL_TOL})")
+    if not (err <= KERNEL_TOL and torch.isfinite(got).all()):
+        raise AssertionError(f"kernel disagrees with plain ({what}): {err}")
+    return err
 
 
 def main() -> int:
@@ -114,7 +146,7 @@ def main() -> int:
         print(f"[data] {pool_np.shape} uint8 store, {pool_np.nbytes / 1e6:.1f}"
               f" MB, rendered in {time.perf_counter() - t0:.1f} s")
 
-        # ---- 3. kernel vs plain at the mug shape --------------------------
+        # ---- 3. kernel vs plain at the mug and scaled shapes --------------
         pool = torch.from_numpy(pool_np).to(dev)
         lengths = torch.from_numpy(lengths_np)
         h, w, c = pool.shape[2:]
@@ -126,14 +158,19 @@ def main() -> int:
                                               m.video_length, True)
             ix = sampling.window_indices(lengths, sel, starts, m.video_length)
             plans.append((sel.to(dev, torch.int32), ix.to(dev, torch.int32)))
-        got = preproc.resize_normalize_gather_cuda(pool, *plans[0], rh, rw)
-        want = preproc.resize_normalize_gather_plain(pool, *plans[0], rh, rw)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        print(f"[kernel] resize_norm vs plain at {tuple(got.shape)}: "
-              f"max_abs_err {err:.3e} (tol {KERNEL_TOL})")
-        if not (err <= KERNEL_TOL and torch.isfinite(got).all()):
-            raise AssertionError(f"kernel disagrees with plain: {err}")
+        err = _check_kernel(pool, *plans[0], rh, rw, "mug")
+        # the scaled config's ingest: B 8, T 32, 128 -> 96 px, C 3, on a
+        # random pool of 12 clips x 40 frames
+        gen = torch.Generator().manual_seed(0)
+        pool_sc = torch.randint(0, 256, (12, 40, 128, 128, 3), generator=gen,
+                                dtype=torch.uint8).to(dev)
+        _check_kernel(pool_sc,
+                      torch.randint(0, 12, (8,), generator=gen,
+                                    dtype=torch.int32).to(dev),
+                      torch.randint(0, 40, (8, 32), generator=gen,
+                                    dtype=torch.int32).to(dev),
+                      *preproc.resize_weights(128, 128, 96, dev), "scaled")
+        del pool_sc
 
         def kern(i):
             preproc.resize_normalize_gather_cuda(pool, *plans[i % 8], rh, rw)
@@ -141,39 +178,48 @@ def main() -> int:
         def plain(i):
             preproc.resize_normalize_gather_plain(pool, *plans[i % 8], rh, rw)
 
-        sel0, ix0 = plans[0]
-        x_lib = pool[sel0.long()[:, None], ix0.long()].permute(
-            0, 1, 4, 2, 3).reshape(-1, c, h, w).float()
+        # F.interpolate on the same 8 plans, each pre-gathered as f32 planes
+        x_lib = [pool[sel.long()[:, None], ix.long()].permute(
+            0, 1, 4, 2, 3).reshape(-1, c, h, w).float() for sel, ix in plans]
 
-        def lib(_):
-            return F.interpolate(x_lib, size=(s, s), mode="bilinear",
+        def lib(i):
+            return F.interpolate(x_lib[i % 8], size=(s, s), mode="bilinear",
                                  align_corners=False, antialias=False)
 
         lib_out = (lib(0) * (2.0 / 255.0) - 1.0).view(
             b, m.video_length, c, s, s).permute(0, 1, 3, 4, 2)
-        lib_err = float((lib_out - want).abs().max())
-        kernel_ms = _time_ms(kern, 50)
-        plain_ms = _time_ms(plain, 20)
-        library_ms = _time_ms(lib, 50)
+        lib_err = float((lib_out - preproc.resize_normalize_gather_plain(
+            pool, *plans[0], rh, rw)).abs().max())
+        kernel_ms, kernel_host_ms = _time_ms(kern, 50)
+        plain_ms, _ = _time_ms(plain, 20)
+        library_ms, _ = _time_ms(lib, 50)
+        library_one_ms, _ = _time_ms(lambda _: lib(0), 50)
+        del x_lib
         n_planes = b * m.video_length * c
         moved = (n_planes * h * w + 4 * (rh.numel() + rw.numel())
                  + 4 * (b + b * m.video_length) + 4 * n_planes * s * s)
         # bilinear needs 2 taps per output of each pass (a multiply and an
-        # add each), then the affine: what the function needs, not what the
-        # kernel's dense R_h X R_w form spends (shown for reference).
+        # add each), then the affine
         flops = n_planes * (4 * s * w + 4 * s * s + 2 * s * s)
-        dense_flops = 2 * n_planes * s * (h * w + w * s)
-        bw, peak = _rates(smi.rsplit(",", 1)[0].strip())
-        bound_s = {"bytes": moved / bw, "operations": flops / peak}
-        bound_by = max(bound_s, key=bound_s.get)
-        print(f"[kernel] ms {kernel_ms:.4f}, plain {plain_ms:.4f}, "
-              f"F.interpolate {library_ms:.4f} (its max err vs plain "
-              f"{lib_err:.2e}; input pre-gathered in f32)")
-        print(f"[kernel] bound {1e3 * bound_s[bound_by]:.4f} ms by "
-              f"{bound_by}: {moved / 1e6:.2f} MB at {bw / 1e12} TB/s, "
-              f"{flops / 1e9:.4f} GFLOP (2-tap) at {peak / 1e12} TFLOP/s "
-              f"fp32; the dense form's {dense_flops / 1e9:.3f} GFLOP would "
-              f"take {1e3 * dense_flops / peak:.4f} ms")
+        print(f"[kernel] device ms {kernel_ms:.5f} (host {kernel_host_ms:.5f}"
+              f" ms per wrapper call), plain {plain_ms:.5f}, F.interpolate "
+              f"{library_ms:.5f} over the 8 plans, {library_one_ms:.5f} on "
+              f"plan 0 alone (input pre-gathered in f32; its max err vs "
+              f"plain {lib_err:.2e})")
+        rates = RATES.get(smi.rsplit(",", 1)[0].strip())
+        bound_ms = bound_by = None
+        if rates is None:
+            print(f"[kernel] no data-sheet rates for {smi!r}: no bound")
+        else:
+            bw, peak = rates
+            bound_s = {"bytes": moved / bw, "operations": flops / peak}
+            bound_by = max(bound_s, key=bound_s.get)
+            bound_ms = 1e3 * bound_s[bound_by]
+            print(f"[kernel] bound {bound_ms:.6f} ms by {bound_by} "
+                  f"({bound_ms / kernel_ms:.3f} of it reached): "
+                  f"{moved / 1e6:.2f} MB at {bw / 1e12} TB/s, "
+                  f"{flops / 1e9:.4f} GFLOP (2-tap) at {peak / 1e12} "
+                  f"TFLOP/s fp32")
 
         # ---- 4. train the full-width mug model ------------------------------
         trainer = Trainer(cfg, out_dir=os.path.join(tmp, "run"), device=dev)
@@ -228,8 +274,8 @@ def main() -> int:
         "source": "mocogan_tpu_torch/csrc/resize_norm.cu",
         "replaces": "mocogan_tpu/ops/preproc.py:90",
         "launches": launches, "max_abs_err": err, "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": 1e3 * bound_s[bound_by], "bound_by": bound_by,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_frac": None if bound_ms is None else bound_ms / kernel_ms,
         "library_ms": library_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -24,19 +24,25 @@ def cuda():
     return torch.device("cuda")
 
 
-def _pool(h=48, w=40):
+def _pool(h=48, w=40, c=3):
     """4 clips padded to 10 frames; clip 1 has 3 frames (< t = 6)."""
     lengths = torch.tensor([10, 3, 10, 7])
-    pool = np.random.default_rng(3).integers(0, 256, (4, 10, h, w, 3),
+    pool = np.random.default_rng(3).integers(0, 256, (4, 10, h, w, c),
                                              dtype=np.uint8)
     return torch.from_numpy(pool), lengths
 
 
+# mug (96 -> 64), scaled (128 -> 96), identity, a 37 x 53 frame that is no
+# multiple of 16 bytes (C 1 and 3), upscaling, and S 33 (S * S * C not a
+# multiple of 4, so bands start off 16-byte boundaries)
 @pytest.mark.gpu
-@pytest.mark.parametrize("h,w,s", [(48, 40, 32), (96, 96, 64), (64, 64, 64),
-                                   (128, 128, 64)])
-def test_resize_norm_kernel_matches_plain(cuda, h, w, s):
-    pool, lengths = _pool(h, w)
+@pytest.mark.parametrize("h,w,s,c", [(48, 40, 32, 3), (96, 96, 64, 3),
+                                     (64, 64, 64, 3), (128, 128, 64, 3),
+                                     (128, 128, 96, 3), (37, 53, 32, 1),
+                                     (37, 53, 32, 3), (32, 32, 64, 3),
+                                     (48, 40, 33, 3)])
+def test_resize_norm_kernel_matches_plain(cuda, h, w, s, c):
+    pool, lengths = _pool(h, w, c)
     sel = torch.tensor([1, 0, 3, 1, 2])
     ix = sampling.window_indices(lengths, sel, torch.tensor([2, 4, 1, 0, 3]),
                                  6)
@@ -48,7 +54,7 @@ def test_resize_norm_kernel_matches_plain(cuda, h, w, s):
     want = preproc.resize_normalize_gather_plain(*args)
     torch.cuda.synchronize()
     assert preproc.LAUNCHES["resize_norm"] == before + 1
-    assert got.shape == (5, 6, s, s, 3)
+    assert got.shape == (5, 6, s, s, c)
     assert float((got - want).abs().max()) <= ATOL
 
 
