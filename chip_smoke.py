@@ -14,9 +14,16 @@ Phases, in order; any failure raises and exits non-zero:
   4. render a 96 px synthetic uint8 clip store and train the full-width mug
      model (fp32, batch 16, 16 steps per call) through the device-cached
      trainer; the kernel's launch count must equal the steps taken;
-  5. generate() 16 clips, and hold a small generate() on the card against
-     the same weights and noise on the CPU;
-  6. print the kernels line, then the result line.
+  5. the host-fed path on the same store: hold the kernel against its plain
+     version on one uploaded stack of 16 batches (the stack is the pool),
+     then train the mug model host-fed (native clip store, pinned uploads)
+     for 3 calls with a checkpoint and a sample grid every 32 steps (the
+     kernel's launches must equal the steps taken), resume a fresh trainer
+     from the step-48 checkpoint to step 64, and sample a grid from the
+     checkpoint with the generate CLI;
+  6. generate() 16 clips, and hold generate(seed=3) on the card against the
+     same call on the CPU (the noise is drawn on the host);
+  7. print the kernels line, then the result line.
 fp32 runs in full fp32: TF32 is switched off for matmuls and cuDNN.
 """
 
@@ -34,6 +41,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNEL_TOL = 1e-5       # values in [-1, 1]; reordered fp32 sums
 GENERATE_TOL = 1e-4     # 4 BN-normalized deconv stages, card vs CPU fp32
 TRAIN_CALLS = 5         # trainer calls of k = 16 steps; the first warms up
+HOST_FED_CALLS = 3      # host-fed calls of k = 16 steps before the resume
 
 
 # nvidia-smi name -> (bytes/s, fp32 FLOP/s without tensor cores), from the
@@ -92,6 +100,12 @@ def _check_kernel(pool, clip_ix, frame_ix, rh, rw, what) -> float:
     return err
 
 
+def _check_losses(recs) -> None:
+    keys = ("loss_di", "loss_dv", "loss_gen", "loss_gen_di", "loss_gen_dv")
+    if not all(math.isfinite(r[kk]) for r in recs for kk in keys):
+        raise AssertionError(f"non-finite losses: {recs}")
+
+
 def main() -> int:
     import torch
 
@@ -105,6 +119,9 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import torch.nn.functional as F
 
+    import numpy as np
+
+    from mocogan_tpu_torch import generate as generate_cli
     from mocogan_tpu_torch import get_config
     from mocogan_tpu_torch.data import clips, synthetic
     from mocogan_tpu_torch.models import generator
@@ -164,12 +181,13 @@ def main() -> int:
         gen = torch.Generator().manual_seed(0)
         pool_sc = torch.randint(0, 256, (12, 40, 128, 128, 3), generator=gen,
                                 dtype=torch.uint8).to(dev)
-        _check_kernel(pool_sc,
-                      torch.randint(0, 12, (8,), generator=gen,
-                                    dtype=torch.int32).to(dev),
-                      torch.randint(0, 40, (8, 32), generator=gen,
-                                    dtype=torch.int32).to(dev),
-                      *preproc.resize_weights(128, 128, 96, dev), "scaled")
+        err_sc = _check_kernel(
+            pool_sc,
+            torch.randint(0, 12, (8,), generator=gen,
+                          dtype=torch.int32).to(dev),
+            torch.randint(0, 40, (8, 32), generator=gen,
+                          dtype=torch.int32).to(dev),
+            *preproc.resize_weights(128, 128, 96, dev), "scaled")
         del pool_sc
 
         def kern(i):
@@ -221,59 +239,140 @@ def main() -> int:
                   f"{flops / 1e9:.4f} GFLOP (2-tap) at {peak / 1e12} "
                   f"TFLOP/s fp32")
 
-        # ---- 4. train the full-width mug model ------------------------------
+        # ---- 4. train the full-width mug model, device-cached --------------
         trainer = Trainer(cfg, out_dir=os.path.join(tmp, "run"), device=dev)
         k = cfg.train.steps_per_call
         preproc.LAUNCHES["resize_norm"] = 0
         t0 = time.perf_counter()
         trainer.run_device_cached(total_steps=TRAIN_CALLS * k)
         train_s = time.perf_counter() - t0
-
-        # ---- 5. generate -------------------------------------------------------
-        g = trainer.state.nets["gen"]
-        vids = generator.generate(g, 16, seed=1)
-        torch.cuda.synchronize()
-        launches = preproc.LAUNCHES["resize_norm"]
+        launches_dc = preproc.LAUNCHES["resize_norm"]
 
         steps = trainer.state.step
         recs = trainer.logger.history
-        if steps != TRAIN_CALLS * k or launches != steps:
-            raise AssertionError(f"{steps} steps, {launches} kernel launches")
-        keys = ("loss_di", "loss_dv", "loss_gen", "loss_gen_di",
-                "loss_gen_dv")
-        if not all(math.isfinite(r[kk]) for r in recs for kk in keys):
-            raise AssertionError(f"non-finite losses: {recs}")
+        if steps != TRAIN_CALLS * k or launches_dc != steps:
+            raise AssertionError(f"{steps} steps, {launches_dc} kernel "
+                                 f"launches")
+        _check_losses(recs)
         warm = recs[1:]
         sps = len(warm) * k / sum(k / r["steps_per_sec"] for r in warm)
-        print(f"[train] mug fp32 batch {b}, k {k}: {steps} steps in "
-              f"{train_s:.2f} s; {sps:.3f} steps/s after the first call; "
-              f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        print(f"[train] device-cached mug fp32 batch {b}, k {k}: {steps} "
+              f"steps in {train_s:.2f} s; {sps:.3f} steps/s after the first "
+              f"call; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
         print(f"[train] last losses " + json.dumps(
-            {kk: recs[-1][kk] for kk in keys}))
+            {kk: v for kk, v in recs[-1].items() if kk.startswith("loss")}))
 
+        # ---- 5. the host-fed path -------------------------------------------
+        cfg_hf = get_config("mug", **{
+            "data.data_dir": cfg.data.data_dir, "data.device_cache": False,
+            "train.log_every": k, "train.checkpoint_every": 2 * k,
+            "train.sample_every": 2 * k})
+        # the kernel on the host-fed layout: the stack of k uploaded
+        # batches is the pool, and step j reads clips j*B .. j*B + B - 1
+        it = clips.clip_batch_iterator(cfg_hf, use_native=True)
+        stack = torch.from_numpy(
+            np.stack([next(it)["raw"] for _ in range(k)])).to(dev)
+        j = k - 1
+        err_hf = _check_kernel(
+            stack.view(k * b, *stack.shape[2:]),
+            torch.arange(j * b, (j + 1) * b, dtype=torch.int32, device=dev),
+            torch.arange(m.video_length, dtype=torch.int32,
+                         device=dev).expand(b, -1).contiguous(),
+            rh, rw, f"host-fed (stack {tuple(stack.shape)}, step {j})")
+        del stack, it
+
+        run_hf = os.path.join(tmp, "run_hf")
+        trainer_hf = Trainer(cfg_hf, out_dir=run_hf, device=dev)
+        preproc.LAUNCHES["resize_norm"] = 0
+        t0 = time.perf_counter()
+        trainer_hf.run(clips.clip_batch_iterator(cfg_hf, use_native=True),
+                       total_steps=HOST_FED_CALLS * k)
+        hf_s = time.perf_counter() - t0
+        launches_hf = preproc.LAUNCHES["resize_norm"]
+        steps_hf = trainer_hf.state.step
+        if steps_hf != HOST_FED_CALLS * k or launches_hf != steps_hf:
+            raise AssertionError(f"host-fed: {steps_hf} steps, {launches_hf}"
+                                 f" kernel launches")
+        recs_hf = trainer_hf.logger.history
+        _check_losses(recs_hf)
+        save = trainer_hf.ckpt.last_save
+        print(f"[host-fed] mug fp32 batch {b}, k {k}: {steps_hf} steps in "
+              f"{hf_s:.2f} s; call 2: {recs_hf[1]['steps_per_sec']:.3f} "
+              f"steps/s, call 3 (its window holds the step-{2 * k} "
+              f"checkpoint and sample grid): "
+              f"{recs_hf[2]['steps_per_sec']:.3f} steps/s; device-cached "
+              f"{sps:.3f} steps/s after the first call")
+        print(f"[host-fed] the consumer waited "
+              f"{trainer_hf.prefetch_wait_s:.3f} s for the prefetch thread "
+              f"in {hf_s:.2f} s; one checkpoint save (step {save['step']}): "
+              f"{save['seconds']:.3f} s, {save['bytes'] / 1e6:.1f} MB")
+        samples = sorted(os.listdir(os.path.join(run_hf, "samples")))
+        if len(samples) != 2:
+            raise AssertionError(f"sample grids: {samples}")
+
+        # resume: a fresh trainer restores step 48 and trains one more call
+        trainer_r = Trainer(cfg_hf, out_dir=run_hf, device=dev)
+        if trainer_r.state.step != steps_hf:
+            raise AssertionError(f"resumed at {trainer_r.state.step}, "
+                                 f"saved {steps_hf}")
+        preproc.LAUNCHES["resize_norm"] = 0
+        trainer_r.run(clips.clip_batch_iterator(
+            cfg_hf, use_native=True, start_batch=steps_hf),
+            total_steps=steps_hf + k)
+        launches_r = preproc.LAUNCHES["resize_norm"]
+        if trainer_r.state.step != steps_hf + k or launches_r != k:
+            raise AssertionError(f"resumed run: step {trainer_r.state.step},"
+                                 f" {launches_r} kernel launches")
+        _check_losses(trainer_r.logger.history)
+        print(f"[resume] restored step {steps_hf}, trained to "
+              f"{trainer_r.state.step} ({launches_r} launches); last losses "
+              + json.dumps({kk: v for kk, v in
+                            trainer_r.logger.history[-1].items()
+                            if kk.startswith("loss")}))
+
+        # sample from the checkpoint with the generate CLI
+        grid, vids_cli = generate_cli.main(
+            ["--config", "mug", "--run-dir", run_hf, "--n", "16", "--seed",
+             "5", "--out", os.path.join(run_hf, "grid.gif")])
+        if not (os.path.getsize(grid) > 0
+                and tuple(vids_cli.shape) == (16, m.video_length, s, s,
+                                              m.channels)
+                and torch.isfinite(vids_cli).all()
+                and vids_cli.abs().max() <= 1.0):
+            raise AssertionError(f"generate CLI: {grid}, "
+                                 f"{tuple(vids_cli.shape)}")
+        print(f"[generate-cli] step {trainer_r.state.step} -> "
+              f"{os.path.relpath(grid, tmp)} ({os.path.getsize(grid)} "
+              f"bytes); clips {tuple(vids_cli.shape)} in [-1, 1]")
+
+        # ---- 6. generate -------------------------------------------------------
+        g = trainer.state.nets["gen"]
+        vids = generator.generate(g, 16, seed=1)
         if tuple(vids.shape) != (16, m.video_length, s, s, m.channels):
             raise AssertionError(f"generate shape {tuple(vids.shape)}")
         if not (torch.isfinite(vids).all() and vids.abs().max() <= 1.0):
             raise AssertionError("generate output outside [-1, 1]")
-        lat = generator.draw_latents(m, 2, 3, 0, dev)
-        on_card = generator.generate(g, 2, latents=lat).cpu()
+        on_card = generator.generate(g, 2, seed=3).cpu()
         g_cpu = generator.init(m, torch.Generator()).eval()
         g_cpu.load_state_dict({kk: v.cpu() for kk, v in g.state_dict().items()})
-        on_cpu = generator.generate(
-            g_cpu, 2, latents={kk: v.cpu() for kk, v in lat.items()})
+        on_cpu = generator.generate(g_cpu, 2, seed=3)
         gen_err = float((on_card - on_cpu).abs().max())
         print(f"[generate] (16, {m.video_length}, {s}, {s}, {m.channels}) in "
-              f"[-1, 1]; card vs CPU max_abs_err {gen_err:.3e} "
-              f"(tol {GENERATE_TOL})")
+              f"[-1, 1]; generate(seed=3) card vs CPU max_abs_err "
+              f"{gen_err:.3e} (tol {GENERATE_TOL})")
         if not gen_err <= GENERATE_TOL:
             raise AssertionError(f"generate card vs CPU: {gen_err}")
 
-    # ---- 6. result ---------------------------------------------------------
+    # ---- 7. result ---------------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": "resize_norm", "route": "cuda",
         "source": "mocogan_tpu_torch/csrc/resize_norm.cu",
         "replaces": "mocogan_tpu/ops/preproc.py:90",
-        "launches": launches, "max_abs_err": err, "ms": kernel_ms,
+        "launches": launches_dc + launches_hf,
+        "launches_by_path": {"device_cached": launches_dc,
+                             "host_fed": launches_hf},
+        "max_abs_err": max(err, err_sc, err_hf), "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "bound_frac": None if bound_ms is None else bound_ms / kernel_ms,
         "library_ms": library_ms}]}))

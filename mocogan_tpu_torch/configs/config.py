@@ -91,6 +91,11 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
+    """The data feed. ``fused_preproc`` is kept so that the JAX package's
+    configs carry over, and the port ignores it: on the card the ingest of
+    raw clips always runs the kernel (``csrc/resize_norm.cu``), on both
+    training paths, and the plain version runs only on the CPU."""
+
     dataset: str = "synthetic"           # synthetic | mug | weizmann | npy_dir
     data_dir: str = ""
     # Raw stored frame size before the fused on-device resize.

@@ -4,7 +4,8 @@ Clips are bouncing coloured rectangles with constant velocity: enough
 temporal structure for D_V to have signal. Pure numpy, deterministic from
 an integer seed; class labels encode the number of sprites minus one.
 The real MUG corpus is not in the repository, so this store stands in for
-it on the device-cached path.
+it on both training paths; ``batch_iterator`` feeds the toy config's float
+batches straight to the host-fed trainer.
 
 Render a store (one (T, H, W, C) uint8 .npy per clip):
     python -m mocogan_tpu_torch.data.synthetic --out data/synth96 \
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import argparse
 import os
-from typing import Tuple
+from typing import Iterator, Tuple
 
 import numpy as np
 
@@ -51,6 +52,20 @@ def make_batch(seed: int, batch: int, t: int = 16, size: int = 64,
                     vy = -vy
                     y = min(max(y, 0.0), float(size - h))
     return videos, labels.astype(np.int32)
+
+
+def batch_iterator(seed: int, batch: int, t: int = 16, size: int = 64,
+                   channels: int = 3, n_classes: int = 0,
+                   start_batch: int = 0
+                   ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Endless stream of ``make_batch`` batches; batch k is a pure function
+    of (seed, k), so a run restarted at ``start_batch`` = the restored step
+    continues the same stream."""
+    i = int(start_batch)
+    while True:
+        yield make_batch(seed * 1_000_003 + i, batch, t, size, channels,
+                         n_classes)
+        i += 1
 
 
 def render_clip(seed: int, i: int, frames: int, size: int,

@@ -22,6 +22,7 @@ from mocogan_tpu_torch.configs import ModelConfig
 from mocogan_tpu_torch.models import motion
 from mocogan_tpu_torch.ops import layers
 from mocogan_tpu_torch.utils import prng
+from mocogan_tpu_torch.utils.platform import upload
 
 _N_UP = 4  # stride-2 upsampling stages: seed -> x16 spatial
 
@@ -87,15 +88,18 @@ def decode_frames(g: Generator, z: torch.Tensor, *, train: bool,
 
 
 def draw_latents(cfg: ModelConfig, batch: int, seed: int, step: int,
-                 device) -> Dict[str, torch.Tensor]:
+                 device, video_length: Optional[int] = None
+                 ) -> Dict[str, torch.Tensor]:
     """The fake path's noise for (seed, step): z_c (B, d_c), h0 (B, d_m),
-    eps (T, B, d_eps), each from its own role's generator on `device`."""
-    t = cfg.video_length
+    eps (T, B, d_eps), each from its own role's CPU generator, then copied
+    to `device`; T is `video_length` or the config's."""
+    t = video_length or cfg.video_length
     dev = torch.device(device)
 
     def normal(shape, role):
-        return torch.randn(shape, device=dev,
-                           generator=prng.generator(seed, step, role, dev))
+        return upload(torch.randn(shape,
+                                  generator=prng.generator(seed, step, role)),
+                      dev)
 
     return {"z_c": normal((batch, cfg.dim_content), "content"),
             "h0": normal((batch, cfg.dim_motion), "motion_init"),
@@ -111,15 +115,17 @@ def sample_videos(g: Generator, z_c: torch.Tensor, h0: torch.Tensor,
 
 @torch.no_grad()
 def generate(g: Generator, n: int, *, seed: int = 0,
-             latents: Optional[Dict[str, torch.Tensor]] = None
-             ) -> torch.Tensor:
+             latents: Optional[Dict[str, torch.Tensor]] = None,
+             video_length: Optional[int] = None) -> torch.Tensor:
     """Public inference API: n clips (N, T, H, W, C) in [-1, 1], BN in eval
-    mode (running stats), on the device the generator lives on.
-    Deterministic given (weights, seed) on one device type; ``latents``
-    (z_c, h0, eps as from ``draw_latents``) overrides the draws."""
+    mode (running stats), on the device the generator lives on. The noise
+    is drawn on the host, so (weights, seed) give the same clips on the
+    card and on the CPU up to fp32 rounding; ``latents`` (z_c, h0, eps as
+    from ``draw_latents``) overrides the draws. T is `video_length` or the
+    config's."""
     if latents is None:
         dev = next(g.parameters()).device
-        latents = draw_latents(g.cfg, n, seed, 0, dev)
+        latents = draw_latents(g.cfg, n, seed, 0, dev, video_length)
     return sample_videos(g, latents["z_c"], latents["h0"], latents["eps"],
                          train=False)
 

@@ -1,44 +1,208 @@
-"""The trainer, device-cached mode.
+"""The trainer: host-fed and device-cached training under one cadence.
 
-The uint8 clip store is uploaded to the device once; each call then runs
-k = train.steps_per_call steps (``step.cached_multi_train_step``). Metrics
-stay on the device and are copied to the host once per log window, then
-written to ``<out_dir>/log.jsonl``. Checkpoints, eval, hooks and the
-host-fed mode are not ported yet.
+  * host-fed (``run``): a host iterator yields batches, float32 clips or
+    raw uint8 windows of the clip store; ``data.pipeline.HostFeed`` stacks
+    k of them in pinned memory on its prefetch thread and uploads the next
+    stack while the device runs the current call of k steps
+    (``step.multi_train_step``);
+  * device-cached (``run_device_cached``): the uint8 clip store is
+    uploaded once and each call samples its k batches on the device
+    (``step.cached_multi_train_step``).
+
+Both feed raw clips through the ingest kernel, and both hand each call to
+``_run_loop``, the one copy of the log / sample / checkpoint / hook cadence.
+Metrics stay on the device and are copied to the host once per log window,
+then written to ``<out_dir>/log.jsonl``. Checkpoints go to
+``<out_dir>/checkpoints/<step>/state.pt`` and sample grids to
+``<out_dir>/samples/``. A new Trainer on the same out_dir resumes from the
+latest checkpoint, and the data stream resumes at the restored step.
+Periodic eval is not ported yet.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Dict, Optional
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 
 from mocogan_tpu_torch.configs import ExperimentConfig
 from mocogan_tpu_torch.data import clips
+from mocogan_tpu_torch.data.pipeline import HostFeed
+from mocogan_tpu_torch.models import generator
 from mocogan_tpu_torch.ops import preproc
 from mocogan_tpu_torch.train import state as train_state
 from mocogan_tpu_torch.train import step as train_step_mod
+from mocogan_tpu_torch.utils import video as video_utils
+from mocogan_tpu_torch.utils.checkpoint import CheckpointManager
 from mocogan_tpu_torch.utils.metrics import MetricLogger
 from mocogan_tpu_torch.utils.platform import resolve_device
+
+# the seed of the fixed sample grid is the training seed plus this
+EVAL_SEED_OFFSET = 1_000_000
 
 
 class Trainer:
     """Drives training for one ExperimentConfig on `device` (default
-    ``cuda``; ``device="cpu"`` runs the plain ingest on the CPU)."""
+    ``cuda``; ``device="cpu"`` runs the plain ingest on the CPU). With
+    `resume`, the latest checkpoint in ``<out_dir>/checkpoints`` is
+    restored."""
 
     def __init__(self, cfg: ExperimentConfig, out_dir: Optional[str] = None,
-                 device=None):
+                 resume: bool = True, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        if (cfg.train.num_devices or 1) > 1:
+            raise NotImplementedError(
+                f"train.num_devices={cfg.train.num_devices}: multi-GPU "
+                f"training is not ported yet (ROADMAP A11)")
         self.out_dir = out_dir or os.path.join(cfg.out_dir, cfg.name)
+        os.makedirs(self.out_dir, exist_ok=True)
         self.logger = MetricLogger(self.out_dir)
+        # epoch_shuffle changes batch_plan's (seed, step) -> clip mapping, so
+        # it is part of the stream identity a resume compares
+        self.ckpt = CheckpointManager(
+            os.path.join(self.out_dir, "checkpoints"),
+            max_to_keep=cfg.train.keep_checkpoints,
+            stream_meta={"epoch_shuffle": cfg.data.epoch_shuffle})
         self.state = train_state.create(cfg, device=self.device)
+        if resume and self.ckpt.latest_step() is not None:
+            self.ckpt.restore(self.state)
+            print(f"[trainer] resumed from step {self.state.step}")
+        self._hooks: list = []
+        # seconds the last host-fed run waited for its prefetch thread
+        self.prefetch_wait_s = 0.0
+
+    def add_hook(self, every: int,
+                 fn: Callable[["Trainer", int], Any]) -> None:
+        """Call fn(trainer, step) on the host every `every` steps."""
+        self._hooks.append((int(every), fn))
+
+    def save_samples(self, step: int, n: int = 16) -> str:
+        """A grid of n clips from the fixed seed train.seed + 1_000_000, at
+        ``<out_dir>/samples/step_<step>.gif`` (``.npy`` without PIL)."""
+        t0 = time.perf_counter()
+        vids = generator.generate(self.state.nets["gen"], n,
+                                  seed=self.cfg.train.seed + EVAL_SEED_OFFSET)
+        u8 = generator.to_uint8(vids).cpu().numpy()
+        t1 = time.perf_counter()
+        path = video_utils.save_video_grid(u8, os.path.join(
+            self.out_dir, "samples", f"step_{step:08d}.gif"))
+        print(f"[samples] step {step}: generate {t1 - t0:.3f} s, write "
+              f"{time.perf_counter() - t1:.3f} s -> {path}")
+        return path
 
     @staticmethod
     def _crossed(every: int, s0: int, s1: int) -> bool:
         return bool(every) and (s1 // every) > (s0 // every)
+
+    def _plan_total(self, total_steps: Optional[int],
+                    k: int) -> Optional[Tuple[int, int]]:
+        """(start, total rounded up to a multiple of k), or None when the
+        restored step already covers the request. Raises on settings the
+        port cannot run, before any step."""
+        t = self.cfg.train
+        if t.eval_every and t.eval_clips < 1:
+            raise ValueError(
+                f"train.eval_clips must be >= 1 when eval_every="
+                f"{t.eval_every} is set (got {t.eval_clips})")
+        if t.eval_every:
+            raise NotImplementedError(
+                f"train.eval_every={t.eval_every}: periodic eval is not "
+                f"ported yet (ROADMAP A9); set train.eval_every=0")
+        total = total_steps or t.total_steps
+        start = self.state.step
+        if start >= total:
+            print(f"[trainer] nothing to do: resumed step {start} >= "
+                  f"total {total}")
+            return None
+        if (total - start) % k:
+            total = start + -(-(total - start) // k) * k
+            print(f"[trainer] rounding total up to {total} "
+                  f"(steps_per_call={k})")
+        return start, total
+
+    def _run_loop(self, start: int, total: int, k: int,
+                  dispatch: Callable[[int], Dict[str, torch.Tensor]]
+                  ) -> Dict[str, float]:
+        """The cadence loop of both modes. dispatch(step) advances the
+        state by k steps and returns their mean metrics (0-dim device
+        tensors), re-weighted by k here. Ends with a checkpoint, a sample
+        grid (unless the cadence just wrote one) and the loss plot."""
+        cfg = self.cfg
+        acc: Optional[Dict[str, torch.Tensor]] = None   # on-device sums
+        n_acc = 0                                       # in steps
+        t_window = time.time()
+        last: Dict[str, float] = {}
+        sampled = None
+        step = start
+        while step < total:
+            metrics = dispatch(step)
+            prev, step = step, step + k
+            w = {key: v * k for key, v in metrics.items()}
+            acc = w if acc is None else {key: acc[key] + w[key] for key in w}
+            n_acc += k
+
+            if self._crossed(cfg.train.log_every, prev, step) \
+                    or step >= total:
+                fetched = torch.stack(list(acc.values())).tolist()
+                dt = time.time() - t_window
+                last = {key: v / n_acc for key, v in zip(acc, fetched)}
+                sps = n_acc / dt
+                self.logger.log(step, last, steps_per_sec=round(sps, 3),
+                                clips_per_sec=round(
+                                    sps * cfg.train.batch_size, 2))
+                print(f"[step {step}/{total}] "
+                      + " ".join(f"{kk}={v:.4f}" for kk, v in last.items())
+                      + f" | {sps:.2f} steps/s")
+                acc, n_acc, t_window = None, 0, time.time()
+
+            if self._crossed(cfg.train.sample_every, prev, step):
+                self.save_samples(step)
+                sampled = step
+            if self._crossed(cfg.train.checkpoint_every, prev, step):
+                self.ckpt.save(self.state)
+            for every, hook in self._hooks:
+                if self._crossed(every, prev, step):
+                    hook(self, step)
+
+        self.ckpt.save(self.state, wait=True)
+        if sampled != total:
+            self.save_samples(total)
+        self.logger.plot()
+        return last
+
+    def run(self, data_iterator: Iterator[Any],
+            total_steps: Optional[int] = None) -> Dict[str, float]:
+        """Host-fed training to `total_steps` (rounded up to a multiple of
+        k = train.steps_per_call). The iterator yields (videos float32 in
+        [-1, 1], labels) pairs or {"raw", "frame_idx", "labels"} dicts, as
+        ``make_data_iterator`` does, starting at the state's step. Returns
+        the last logged metrics."""
+        cfg = self.cfg
+        k = max(1, cfg.train.steps_per_call)
+        plan = self._plan_total(total_steps, k)
+        if plan is None:
+            return {}
+        start, total = plan
+        feed = HostFeed(data_iterator, k, self.device,
+                        depth=cfg.data.prefetch)
+        current = {"batch": feed.next()}
+
+        def dispatch(step):
+            metrics = train_step_mod.multi_train_step(self.state,
+                                                      *current["batch"])
+            # the next stack's upload overlaps this call (a copy stream)
+            if step + k < total:
+                current["batch"] = feed.next()
+            return metrics
+
+        try:
+            return self._run_loop(start, total, k, dispatch)
+        finally:
+            feed.close()
+            self.prefetch_wait_s = feed.wait_s
 
     def run_device_cached(self, total_steps: Optional[int] = None
                           ) -> Dict[str, float]:
@@ -47,14 +211,10 @@ class Trainer:
         metrics."""
         cfg = self.cfg
         k = max(1, cfg.train.steps_per_call)
-        total = total_steps or cfg.train.total_steps
-        start = self.state.step
-        if start >= total:
+        plan = self._plan_total(total_steps, k)
+        if plan is None:
             return {}
-        if (total - start) % k:
-            total = start + -(-(total - start) // k) * k
-            print(f"[trainer] rounding total up to {total} "
-                  f"(steps_per_call={k})")
+        start, total = plan
 
         pool_np, lengths_np, _ = clips.load_pool(cfg.data.data_dir)
         if pool_np.shape[1] < cfg.model.video_length:
@@ -71,28 +231,23 @@ class Trainer:
         print(f"[trainer] device cache: {pool_np.nbytes / 1e6:.0f} MB, "
               f"{len(lengths_np)} clips resident on {self.device}")
 
-        acc: Optional[Dict[str, torch.Tensor]] = None
-        n_acc = 0
-        t_window = time.perf_counter()
-        last: Dict[str, float] = {}
-        step = start
-        while step < total:
-            metrics = train_step_mod.cached_multi_train_step(
+        def dispatch(step):
+            return train_step_mod.cached_multi_train_step(
                 self.state, pool, lengths, k, rh, rw)
-            prev, step = step, step + k
-            w = {key: v * k for key, v in metrics.items()}
-            acc = w if acc is None else {key: acc[key] + w[key] for key in w}
-            n_acc += k
-            if self._crossed(cfg.train.log_every, prev, step) \
-                    or step >= total:
-                fetched = {key: float(v) for key, v in acc.items()}
-                dt = time.perf_counter() - t_window
-                last = {key: v / n_acc for key, v in fetched.items()}
-                sps = n_acc / dt
-                self.logger.log(step, last, steps_per_sec=sps,
-                                clips_per_sec=sps * cfg.train.batch_size)
-                print(f"[step {step}/{total}] "
-                      + " ".join(f"{kk}={v:.4f}" for kk, v in last.items())
-                      + f" | {sps:.2f} steps/s")
-                acc, n_acc, t_window = None, 0, time.perf_counter()
-        return last
+
+        return self._run_loop(start, total, k, dispatch)
+
+
+def make_data_iterator(cfg: ExperimentConfig, start_batch: int = 0
+                       ) -> Iterator[Any]:
+    """The host-side batch stream for cfg.data.dataset, from batch
+    `start_batch` (the restored step, for an exactly resumed stream)."""
+    m, t = cfg.model, cfg.train
+    if cfg.data.dataset == "synthetic":
+        from mocogan_tpu_torch.data import synthetic
+
+        return synthetic.batch_iterator(
+            t.seed, t.batch_size, t=m.video_length, size=m.image_size,
+            channels=m.channels, n_classes=m.n_classes,
+            start_batch=start_batch)
+    return clips.clip_batch_iterator(cfg, start_batch=start_batch)

@@ -33,7 +33,9 @@ def make_optimizer(cfg: ExperimentConfig, net: str,
 
 class TrainState:
     """nets: {"gen", "di", ["dv"]} modules; opt: one Adam per net; step:
-    the number of steps taken; seed: the root of every random draw."""
+    the number of steps taken; seed: the root of every random draw;
+    debug_nans: ``train_step`` raises ``FloatingPointError`` on the first
+    non-finite loss, before the update."""
 
     def __init__(self, cfg: ExperimentConfig, seed: int, device: torch.device,
                  nets: Dict[str, nn.Module]):
@@ -41,6 +43,7 @@ class TrainState:
         self.seed = int(seed)
         self.device = device
         self.step = 0
+        self.debug_nans = False
         self.nets = {name: net.to(device) for name, net in nets.items()}
         self.opt = {name: make_optimizer(cfg, name, net.parameters())
                     for name, net in self.nets.items()}

@@ -15,6 +15,13 @@ untouched) on steps the every-k balance lever leaves out.
 ``cached_multi_train_step`` is the device-cached path: for each of k steps
 it plans clip windows on the host, gathers and resizes them from the
 resident uint8 pool in one launch of the ingest kernel, and takes a step.
+``multi_train_step`` is the host-fed path: k steps on a stack of k batches
+uploaded by the trainer; a uint8 stack goes through the same kernel, with
+the stack itself as the pool.
+
+Every random draw is made on the host from CPU generators and copied to
+the device, so a (seed, step) draws the same noise on the card as on the
+CPU.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from mocogan_tpu_torch.models import generator
 from mocogan_tpu_torch.ops import losses, preproc, sampling
 from mocogan_tpu_torch.train.state import TrainState
 from mocogan_tpu_torch.utils import prng
+from mocogan_tpu_torch.utils.platform import upload
 
 Draws = Dict[str, torch.Tensor]
 
@@ -41,8 +49,8 @@ def draw_noise(cfg: ExperimentConfig, seed: int, step: int, batch: int,
     t = cfg.model.video_length
     d = generator.draw_latents(cfg.model, batch, seed, step, dev)
     for name, sub in (("i_real", 0), ("i_fake", 1)):
-        d[name] = torch.randint(0, t, (batch,), device=dev, generator=(
-            prng.generator(seed, step, "frame_sample", dev, sub=sub)))
+        d[name] = upload(torch.randint(0, t, (batch,), generator=(
+            prng.generator(seed, step, "frame_sample", sub=sub))), dev)
     return d
 
 
@@ -138,6 +146,10 @@ def train_step(state: TrainState, real: torch.Tensor,
         noise = draw_noise(cfg, state.seed, state.step, real.shape[0],
                            state.device)
     grads, metrics = compute_grads(state, real, noise)
+    if state.debug_nans:
+        bad = [k for k, v in metrics.items() if not torch.isfinite(v)]
+        if bad:
+            raise FloatingPointError(f"non-finite {bad} at step {state.step}")
     with record_function("adam"):
         for name, net in state.nets.items():
             every = (cfg.train.g_update_every if name == "gen"
@@ -180,10 +192,61 @@ def cached_multi_train_step(state: TrainState, pool: torch.Tensor,
                            state.device))
             frame_ix = sampling.window_indices(lengths, d["sel"],
                                                d["starts"], t)
-            clip_ix = d["sel"].to(pool.device, torch.int32)
-            frame_ix = frame_ix.to(pool.device, torch.int32)
+            clip_ix = upload(d["sel"].to(torch.int32), pool.device)
+            frame_ix = upload(frame_ix.to(torch.int32), pool.device)
         with record_function("ingest"):
             real = preproc.resize_normalize_gather(pool, clip_ix, frame_ix,
                                                    rh, rw)
+        ms.append(train_step(state, real, d))
+    return {key: torch.stack([m[key] for m in ms]).mean() for key in ms[0]}
+
+
+def multi_train_step(state: TrainState, batches: torch.Tensor,
+                     frame_idx: Optional[torch.Tensor] = None,
+                     draws: Optional[Sequence[Draws]] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """k = batches.shape[0] steps on a stack of host batches on the state's
+    device.
+
+    batches: (K, B, T, H, W, C) float32 clips in [-1, 1], which go straight
+    to ``train_step``; or uint8 clips at the stored resolution, which go
+    through the ingest kernel once per step with the whole stack as its
+    pool (``stack.view(K*B, T_raw, H, W, C)``, clips j*B .. j*B + B - 1 at
+    step j), so no step copies its batch. frame_idx: (K, B, T) int32 frame
+    indices into T_raw, needed for uint8 stacks whose T_raw is not
+    ``video_length``. `draws`, one dict per step as from ``draw_noise``,
+    overrides the steps' noise. Returns the metrics averaged over the k
+    steps."""
+    cfg = state.cfg
+    _check_order(cfg)
+    k, b, t_raw = batches.shape[:3]
+    t, s = cfg.model.video_length, cfg.model.image_size
+    raw = batches.dtype == torch.uint8
+    if raw:
+        if frame_idx is None:
+            if t_raw != t:
+                raise ValueError(
+                    f"multi_train_step: raw uint8 batches with T_raw={t_raw}"
+                    f" != video_length={t} need explicit frame_idx (the "
+                    f"temporal window selection)")
+            frame_idx = torch.arange(t, dtype=torch.int32,
+                                     device=batches.device).expand(k, b, t)
+        frame_idx = frame_idx.to(batches.device, torch.int32).contiguous()
+        pool = batches.contiguous().view(k * b, *batches.shape[2:])
+        rh, rw = preproc.resize_weights(pool.shape[2], pool.shape[3], s,
+                                        pool.device)
+        clip_ix = torch.arange(k * b, dtype=torch.int32,
+                               device=pool.device).view(k, b)
+    ms: List[Dict[str, torch.Tensor]] = []
+    for j in range(k):
+        with record_function("plan"):
+            d = (draws[j] if draws is not None else
+                 draw_noise(cfg, state.seed, state.step, b, state.device))
+        if raw:
+            with record_function("ingest"):
+                real = preproc.resize_normalize_gather(pool, clip_ix[j],
+                                                       frame_idx[j], rh, rw)
+        else:
+            real = batches[j]
         ms.append(train_step(state, real, d))
     return {key: torch.stack([m[key] for m in ms]).mean() for key in ms[0]}

@@ -19,3 +19,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def upload(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """`t` (a CPU tensor) on `device`, copied without holding the host: on
+    a GPU through pinned memory with ``non_blocking=True``. PyTorch's
+    pinned-memory allocator keeps the staging block until the copy has
+    run. On the CPU `t` itself is returned."""
+    if device.type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)

@@ -5,7 +5,10 @@ such key, so each draw here gets its own ``torch.Generator`` seeded from a
 hash of (seed, step, role, sub). The bits differ from JAX's; what is kept
 is the property: a draw never depends on call order or on earlier draws,
 so a step's noise and data plan can be recomputed from (seed, step) alone.
-Draws on a CUDA generator differ from draws on a CPU generator.
+Every generator is a CPU generator, whatever device the draw is meant for:
+callers draw on the host and copy the result to the device
+(``platform.upload``), so a seed gives the same draws on the card as on the
+CPU.
 """
 
 from __future__ import annotations
@@ -36,9 +39,9 @@ def derive_seed(seed: int, step: int, role: str, sub: int = 0) -> int:
     return int.from_bytes(digest, "little") & ((1 << 63) - 1)
 
 
-def generator(seed: int, step: int, role: str, device="cpu",
-              sub: int = 0) -> torch.Generator:
-    """A fresh generator for one (seed, step, role, sub) draw on `device`."""
-    g = torch.Generator(device=torch.device(device))
+def generator(seed: int, step: int, role: str, sub: int = 0
+              ) -> torch.Generator:
+    """A fresh CPU generator for one (seed, step, role, sub) draw."""
+    g = torch.Generator()
     g.manual_seed(derive_seed(seed, step, role, sub))
     return g

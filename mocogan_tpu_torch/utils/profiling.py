@@ -1,23 +1,34 @@
-"""Where a device-cached training call spends its time, on the card.
+"""Where a training call spends its time, on the card.
 
-    python -m mocogan_tpu_torch.utils.profiling --config mug [--out DIR]
+    python -m mocogan_tpu_torch.utils.profiling --config mug [--host-fed]
+        [--out DIR]
 
 Renders the synthetic 96 px clip store, builds the state at the config's
-full width, warms up with one call of k = train.steps_per_call steps, then
-traces one call with ``torch.profiler`` and prints one JSON line:
-  * the call's wall time and steps/s (host clock, ends in a synchronize);
+full width, warms up with one call of k = train.steps_per_call steps, times
+one call, then traces one call with ``torch.profiler`` and prints one JSON
+line:
+  * the call's wall time and steps/s (host clock, ends in a host read of
+    the metrics);
   * the device's busy time (the union of its kernel, copy and set
     intervals in the trace) and its idle share of the call;
   * device time per phase of the step (the ``record_function`` ranges of
     ``train/step.py``: plan, ingest, losses, grads, adam);
   * the kernels that took the most device time.
-With --out it also writes the Chrome trace there. fp32 runs in full fp32
-(TF32 off for matmuls and cuDNN).
+By default a call is the device-cached one (``cached_multi_train_step``
+on the resident store). With --host-fed it is the host-fed trainer's
+(``data.pipeline.HostFeed``): k batches assembled by the native clip store
+and stacked in pinned memory on the prefetch thread, the stack's upload
+started on a copy stream after the call is queued, and
+``multi_train_step`` on the uploaded stack; the line then also holds the
+seconds the call waited for the prefetch thread. With --out it writes the
+Chrome trace there. fp32 runs in full fp32 (TF32 off for matmuls and
+cuDNN).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import tempfile
@@ -28,35 +39,63 @@ import torch
 PHASES = ("plan", "ingest", "losses", "grads", "adam")
 
 
-def profile_call(cfg, device, out_dir=None, top: int = 15) -> dict:
-    from torch.profiler import ProfilerActivity, profile
-
+def profile_call(cfg, device, out_dir=None, top: int = 15,
+                 host_fed: bool = False) -> dict:
     from mocogan_tpu_torch.data import clips, synthetic
+    from mocogan_tpu_torch.data.pipeline import HostFeed
     from mocogan_tpu_torch.ops import preproc
     from mocogan_tpu_torch.train import state as train_state
     from mocogan_tpu_torch.train import step as train_step
 
     k = cfg.train.steps_per_call
+    state = train_state.create(cfg, device=device)
+    feed = None
     with tempfile.TemporaryDirectory() as tmp:
         synthetic.write_store(tmp, clips=96, frames=32,
                               size=cfg.data.raw_size)
-        pool_np, lengths_np, _ = clips.load_pool(tmp)
-    pool = torch.from_numpy(pool_np).to(device)
-    lengths = torch.from_numpy(lengths_np)
-    rh, rw = preproc.resize_weights(pool.shape[2], pool.shape[3],
-                                    cfg.model.image_size, device)
-    state = train_state.create(cfg, device=device)
+        if host_fed:
+            feed = HostFeed(clips.clip_batch_iterator(
+                dataclasses.replace(cfg, data=dataclasses.replace(
+                    cfg.data, data_dir=tmp)), use_native=True),
+                k, device, depth=cfg.data.prefetch)
+            current = feed.next()
 
-    def call():
-        m = train_step.cached_multi_train_step(state, pool, lengths, k, rh,
-                                               rw)
-        return {key: float(v) for key, v in m.items()}
+            def run():
+                nonlocal current
+                m = train_step.multi_train_step(state, *current)
+                current = feed.next()
+                return m
+        else:
+            pool_np, lengths_np, _ = clips.load_pool(tmp)
+            pool = torch.from_numpy(pool_np).to(device)
+            lengths = torch.from_numpy(lengths_np)
+            rh, rw = preproc.resize_weights(pool.shape[2], pool.shape[3],
+                                            cfg.model.image_size, device)
+
+            def run():
+                return train_step.cached_multi_train_step(
+                    state, pool, lengths, k, rh, rw)
+
+        def call():
+            return {key: float(v) for key, v in run().items()}
+
+        try:
+            return _profile(call, k, device, out_dir, top, feed)
+        finally:
+            if feed is not None:
+                feed.close()
+
+
+def _profile(call, k, device, out_dir, top, feed) -> dict:
+    from torch.profiler import ProfilerActivity, profile
 
     call()                                         # warm-up
     torch.cuda.synchronize()
+    wait0 = feed.wait_s if feed is not None else 0.0
     t0 = time.perf_counter()
     call()
     plain_s = time.perf_counter() - t0
+    wait_s = feed.wait_s - wait0 if feed is not None else None
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -93,6 +132,7 @@ def profile_call(cfg, device, out_dir=None, top: int = 15) -> dict:
     top_k = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:top]
     return {
         "device": torch.cuda.get_device_name(device),
+        "host_fed": feed is not None, "prefetch_wait_s": wait_s,
         "k": k, "call_s": plain_s, "steps_per_s": k / plain_s,
         "traced_call_s": traced_s,
         "device_busy_ms": busy_us / 1e3,
@@ -111,6 +151,8 @@ def main(argv=None):
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--config", default="mug")
     ap.add_argument("--out", default=None, help="write trace.json here")
+    ap.add_argument("--host-fed", action="store_true",
+                    help="profile the host-fed trainer's call")
     args = ap.parse_args(argv)
 
     from mocogan_tpu_torch import get_config
@@ -120,7 +162,7 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(json.dumps(profile_call(get_config(args.config), device,
-                                  args.out)))
+                                  args.out, host_fed=args.host_fed)))
 
 
 if __name__ == "__main__":

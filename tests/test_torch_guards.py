@@ -53,7 +53,7 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 
 def test_entry_points_refuse_a_missing_gpu(monkeypatch, tmp_path):
-    from mocogan_tpu_torch import get_config
+    from mocogan_tpu_torch import generate, get_config
     from mocogan_tpu_torch.train import state
     from mocogan_tpu_torch.train.loop import Trainer
 
@@ -61,6 +61,8 @@ def test_entry_points_refuse_a_missing_gpu(monkeypatch, tmp_path):
     cfg = get_config("toy")
     for call in (lambda: state.create(cfg),
                  lambda: state.create(cfg, device="cuda"),
-                 lambda: Trainer(cfg, out_dir=str(tmp_path))):
+                 lambda: Trainer(cfg, out_dir=str(tmp_path)),
+                 lambda: Trainer(cfg, out_dir=str(tmp_path), resume=True),
+                 lambda: generate.main(["--run-dir", str(tmp_path)])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

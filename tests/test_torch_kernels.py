@@ -67,3 +67,43 @@ def test_resize_norm_kernel_marks_bad_indices_nan(cuda):
     out = preproc.resize_normalize_gather(pool.to(cuda), sel, ix, rh, rw)
     torch.cuda.synchronize()
     assert torch.isfinite(out[0]).all() and torch.isnan(out[1]).all()
+
+
+@pytest.mark.gpu
+def test_resize_norm_kernel_on_an_uploaded_stack(cuda):
+    """The host-fed layout: a (K, B, T, H, W, C) stack viewed as a pool of
+    K*B clips, step j reading clips j*B .. j*B + B - 1."""
+    k, b, t = 3, 4, 5
+    stack = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (k, b, t, 48, 40, 3), dtype=np.uint8)).to(cuda)
+    pool = stack.view(k * b, t, 48, 40, 3)
+    rh, rw = preproc.resize_weights(48, 40, 32, cuda)
+    ix = torch.arange(t, dtype=torch.int32, device=cuda).expand(b, t)
+    for j in range(k):
+        clip_ix = torch.arange(j * b, (j + 1) * b, dtype=torch.int32,
+                               device=cuda)
+        got = preproc.resize_normalize_gather(pool, clip_ix,
+                                              ix.contiguous(), rh, rw)
+        want = preproc.resize_normalize_gather_plain(pool, clip_ix,
+                                                     ix.contiguous(), rh, rw)
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= ATOL
+
+
+@pytest.mark.gpu
+def test_host_fed_steps_launch_the_kernel(cuda):
+    """multi_train_step on an uploaded uint8 stack: one launch a step."""
+    from mocogan_tpu_torch import get_config
+    from mocogan_tpu_torch.train import state, step
+
+    cfg = get_config("mug", **{
+        "model.image_size": 32, "model.video_length": 8,
+        "model.gen_features": 8, "model.disc_features": 8,
+        "train.batch_size": 4})
+    s = state.create(cfg, device=cuda)
+    raw = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 256, (3, 4, 8, 48, 48, 3), dtype=np.uint8)).to(cuda)
+    before = preproc.LAUNCHES["resize_norm"]
+    m = step.multi_train_step(s, raw)
+    assert preproc.LAUNCHES["resize_norm"] == before + 3 and s.step == 3
+    assert all(torch.isfinite(v) for v in m.values())
