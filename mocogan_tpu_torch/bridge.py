@@ -14,6 +14,10 @@ state is optax's ``ScaleByAdamState(count, mu, nu)``, handed over as
 {"count": int, "mu": tree, "nu": tree}; mu and nu are params-shaped trees
 and take the params' layout conversion. On the port's side they are torch
 Adam's ``step``, ``exp_avg`` and ``exp_avg_sq``.
+
+The eval's random-projection extractor crosses the same way
+(``fvd_extractor_from_jax``). I3D needs no converter: both packages read
+the same npz contract (``eval/i3d.py``).
 """
 
 from __future__ import annotations
@@ -128,6 +132,19 @@ def state_trees(state) -> Tree:
             "bn": {n: bn_tree(net) for n, net in state.nets.items()},
             "opt": {n: adam_tree(net, state.opt[n])
                     for n, net in state.nets.items()}}
+
+
+def fvd_extractor_from_jax(params: Mapping[str, Any]):
+    """An ``eval.fvd.RandomProjectionFeatures`` holding the JAX extractor's
+    weights (its ``params`` tree: DHWIO conv kernels, (in, out) dense), on
+    the CPU. It then has the JAX extractor's fingerprint, so fvd_proxy
+    values of the two packages compare."""
+    from mocogan_tpu_torch.eval.fvd import RandomProjectionFeatures
+
+    ext = RandomProjectionFeatures(
+        dim=int(np.shape(params["proj"]["w"])[-1]),
+        width=int(np.shape(params["conv0"]["w"])[-1]))
+    return load_net(ext, params)
 
 
 def load_state(state, trees: Mapping[str, Any]):

@@ -12,8 +12,9 @@ works channels-first.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -128,6 +129,48 @@ def generate(g: Generator, n: int, *, seed: int = 0,
         latents = draw_latents(g.cfg, n, seed, 0, dev, video_length)
     return sample_videos(g, latents["z_c"], latents["h0"], latents["eps"],
                          train=False)
+
+
+def _chunks(g: Generator, n: int, seed: int, chunk: int,
+            latents: Optional[Sequence[Dict[str, torch.Tensor]]]
+            ) -> Iterator[torch.Tensor]:
+    """``generate`` in chunks of at most `chunk` clips: chunk i draws
+    ``draw_latents(cfg, m_i, seed, step=i)`` (the JAX package's
+    ``fold_in(key, i)``), or takes ``latents[i]``."""
+    if n <= 0:
+        raise ValueError(f"generate_chunked needs n >= 1, got {n}")
+    dev = next(g.parameters()).device
+    done = i = 0
+    while done < n:
+        m = min(chunk, n - done)
+        lat = (latents[i] if latents is not None
+               else draw_latents(g.cfg, m, seed, i, dev))
+        yield generate(g, m, latents=lat)
+        done += m
+        i += 1
+
+
+def generate_chunked_device(g: Generator, n: int, *, seed: int = 0,
+                            chunk: int = 64,
+                            latents: Optional[Sequence[Dict[
+                                str, torch.Tensor]]] = None
+                            ) -> torch.Tensor:
+    """n clips (N, T, H, W, C) generated `chunk` at a time, left on the
+    generator's device: activations are bounded by one chunk, the result
+    holds all n clips. `latents`, one dict per chunk as from
+    ``draw_latents``, overrides the draws."""
+    out = list(_chunks(g, n, seed, chunk, latents))
+    return out[0] if len(out) == 1 else torch.cat(out)
+
+
+def generate_chunked(g: Generator, n: int, *, seed: int = 0, chunk: int = 64,
+                     latents: Optional[Sequence[Dict[str, torch.Tensor]]]
+                     = None) -> np.ndarray:
+    """``generate_chunked_device`` with each chunk copied to the host as
+    soon as it is done, so the device holds about one chunk -> one host
+    (N, T, H, W, C) float32 array of the same clips."""
+    return np.concatenate([v.cpu().numpy()
+                           for v in _chunks(g, n, seed, chunk, latents)])
 
 
 def to_uint8(videos: torch.Tensor) -> torch.Tensor:

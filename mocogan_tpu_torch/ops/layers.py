@@ -149,9 +149,9 @@ def _bias(n: int, bias: bool) -> Optional[nn.Parameter]:
 
 class Dense(_Layer):
     def __init__(self, din: int, dout: int, gen: torch.Generator, *,
-                 bias: bool = True):
+                 bias: bool = True, std: float = _W_STD):
         super().__init__()
-        self.w = nn.Parameter(normal((din, dout), gen))
+        self.w = nn.Parameter(normal((din, dout), gen, std))
         self.b = _bias(dout, bias)
 
     def forward(self, x):
@@ -198,11 +198,12 @@ class Deconv2d(_Layer):
 
 class Conv3d(_Layer):
     def __init__(self, k: Tuple[int, int, int], cin: int, cout: int,
-                 gen: torch.Generator, *, bias: bool = True):
+                 gen: torch.Generator, *, bias: bool = True,
+                 std: float = _W_STD):
         super().__init__()
         self.w = nn.Parameter(
             torch.from_numpy(self._w_from_jax(
-                normal((*k, cin, cout), gen).numpy())).contiguous())
+                normal((*k, cin, cout), gen, std).numpy())).contiguous())
         self.b = _bias(cout, bias)
 
     def _w_from_jax(self, a):   # DHWIO -> OIDHW

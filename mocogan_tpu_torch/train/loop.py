@@ -10,21 +10,28 @@
     (``step.cached_multi_train_step``).
 
 Both feed raw clips through the ingest kernel, and both hand each call to
-``_run_loop``, the one copy of the log / sample / checkpoint / hook cadence.
-Metrics stay on the device and are copied to the host once per log window,
-then written to ``<out_dir>/log.jsonl``. Checkpoints go to
+``_run_loop``, the one copy of the log / sample / eval / checkpoint / hook
+cadence. Metrics stay on the device and are copied to the host once per log
+window, then written to ``<out_dir>/log.jsonl``. Checkpoints go to
 ``<out_dir>/checkpoints/<step>/state.pt`` and sample grids to
 ``<out_dir>/samples/``. A new Trainer on the same out_dir resumes from the
 latest checkpoint, and the data stream resumes at the restored step.
-Periodic eval is not ported yet.
+
+Every ``train.eval_every`` steps the quality panel (``eval/panel.py``) runs
+on up to ``train.eval_clips`` real clips, which each mode makes with the
+ingest kernel: device-cached, one launch over fixed windows of the resident
+store (the JAX package's numpy draws, made once per run); host-fed, one
+launch over the clips of the recent uploaded stacks.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Any, Callable, Dict, Iterator, Optional, Tuple
+from collections import deque
+from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from mocogan_tpu_torch.configs import ExperimentConfig
@@ -37,10 +44,50 @@ from mocogan_tpu_torch.train import step as train_step_mod
 from mocogan_tpu_torch.utils import video as video_utils
 from mocogan_tpu_torch.utils.checkpoint import CheckpointManager
 from mocogan_tpu_torch.utils.metrics import MetricLogger
-from mocogan_tpu_torch.utils.platform import resolve_device
+from mocogan_tpu_torch.utils.platform import resolve_device, upload
 
-# the seed of the fixed sample grid is the training seed plus this
+# the seed of the fixed sample grid and of the panel's generated clips is
+# the training seed plus this
 EVAL_SEED_OFFSET = 1_000_000
+
+
+def eval_windows(lengths: np.ndarray, n: int, t: int
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """The device-cached eval pool's windows, the JAX package's draws:
+    (clip indices (n,), frame indices (n, t)) from ``default_rng(0)``,
+    clips with replacement, one start per selected clip in order, frames
+    wrapped at the clip's length."""
+    rng = np.random.default_rng(0)
+    sel = rng.integers(0, len(lengths), size=n)
+    starts = np.array([int(rng.integers(0, max(lengths[i] - t + 1, 1)))
+                       for i in sel], np.int64)
+    frames = (starts[:, None] + np.arange(t)) \
+        % np.maximum(lengths[sel], 1)[:, None]
+    return sel, frames
+
+
+def stack_eval_pool(stacks: Sequence[Tuple[torch.Tensor,
+                                           Optional[torch.Tensor]]],
+                    n: int, size: int) -> torch.Tensor:
+    """The first n clips of uploaded host-fed stacks ((K, B, ...) batches,
+    (K, B, T) frame indices or None), in order: float clips as they are,
+    uint8 clips through one launch of the ingest kernel."""
+    parts = [b.flatten(0, 1) for b, _ in stacks]
+    clips_ = parts[0] if len(parts) == 1 else torch.cat(parts)
+    m = min(n, clips_.shape[0])
+    if clips_.dtype != torch.uint8:
+        return clips_[:m]
+    t = clips_.shape[1]
+    idx = torch.cat([
+        (ix if ix is not None else torch.arange(
+            t, dtype=torch.int32, device=b.device).expand(*b.shape[:2], t)
+         ).flatten(0, 1) for b, ix in stacks])
+    rh, rw = preproc.resize_weights(clips_.shape[2], clips_.shape[3], size,
+                                    clips_.device)
+    return preproc.resize_normalize_gather(
+        clips_.contiguous(),
+        torch.arange(m, dtype=torch.int32, device=clips_.device),
+        idx[:m].to(torch.int32).contiguous(), rh, rw)
 
 
 class Trainer:
@@ -71,8 +118,12 @@ class Trainer:
             self.ckpt.restore(self.state)
             print(f"[trainer] resumed from step {self.state.step}")
         self._hooks: list = []
+        self._panel = None       # eval.panel.PanelRunner, built on first use
+        self._fvd_warned = False
         # seconds the last host-fed run waited for its prefetch thread
         self.prefetch_wait_s = 0.0
+        # ingest-kernel launches made to build eval pools (all runs)
+        self.eval_pool_launches = 0
 
     def add_hook(self, every: int,
                  fn: Callable[["Trainer", int], Any]) -> None:
@@ -93,6 +144,35 @@ class Trainer:
               f"{time.perf_counter() - t1:.3f} s -> {path}")
         return path
 
+    def eval_fvd(self, real_pool) -> float:
+        """fvd_proxy between freshly generated clips and `real_pool`."""
+        return self.eval_metrics(real_pool)["fvd_proxy"]
+
+    def eval_metrics(self, real_pool) -> Dict[str, float]:
+        """The quality panel (``eval/panel.py``) of the current state on
+        the first ``train.eval_clips`` clips of `real_pool` (N, T, H, W, C)
+        in [-1, 1]: fvd_proxy, gen_spread_ratio, acd_gen / acd_real,
+        gen_pairwise_ssim and dv_margin. The generated clips come from the
+        seed train.seed + 1_000_000."""
+        runner = self._panel_runner()
+        n = min(self.cfg.train.eval_clips, len(real_pool))
+        want = 4 * runner.extractor.dim
+        if 0 < n < want and not self._fvd_warned:
+            self._fvd_warned = True
+            print(f"[trainer] WARNING: fvd_proxy from {n} clips < 4x the "
+                  f"{runner.extractor.dim}-dim extractor ({want}); the "
+                  f"covariance estimate will be noise-dominated")
+        nets = self.state.nets
+        return runner(nets["gen"], nets.get("dv"), real_pool,
+                      self.cfg.train.seed + EVAL_SEED_OFFSET, n=n)
+
+    def _panel_runner(self):
+        if self._panel is None:
+            from mocogan_tpu_torch.eval.panel import PanelRunner
+
+            self._panel = PanelRunner(self.cfg, device=self.device)
+        return self._panel
+
     @staticmethod
     def _crossed(every: int, s0: int, s1: int) -> bool:
         return bool(every) and (s1 // every) > (s0 // every)
@@ -107,10 +187,6 @@ class Trainer:
             raise ValueError(
                 f"train.eval_clips must be >= 1 when eval_every="
                 f"{t.eval_every} is set (got {t.eval_clips})")
-        if t.eval_every:
-            raise NotImplementedError(
-                f"train.eval_every={t.eval_every}: periodic eval is not "
-                f"ported yet (ROADMAP A9); set train.eval_every=0")
         total = total_steps or t.total_steps
         start = self.state.step
         if start >= total:
@@ -124,12 +200,15 @@ class Trainer:
         return start, total
 
     def _run_loop(self, start: int, total: int, k: int,
-                  dispatch: Callable[[int], Dict[str, torch.Tensor]]
+                  dispatch: Callable[[int], Dict[str, torch.Tensor]],
+                  eval_pool_fn: Callable[[], torch.Tensor]
                   ) -> Dict[str, float]:
-        """The cadence loop of both modes. dispatch(step) advances the
-        state by k steps and returns their mean metrics (0-dim device
-        tensors), re-weighted by k here. Ends with a checkpoint, a sample
-        grid (unless the cadence just wrote one) and the loss plot."""
+        """The cadence loop of both modes: log, sample grid, eval panel,
+        checkpoint, hooks, in that order. dispatch(step) advances the state
+        by k steps and returns their mean metrics (0-dim device tensors),
+        re-weighted by k here; eval_pool_fn() returns the panel's real
+        clips. Ends with a checkpoint, a sample grid (unless the cadence
+        just wrote one) and the loss plot."""
         cfg = self.cfg
         acc: Optional[Dict[str, torch.Tensor]] = None   # on-device sums
         n_acc = 0                                       # in steps
@@ -161,6 +240,23 @@ class Trainer:
             if self._crossed(cfg.train.sample_every, prev, step):
                 self.save_samples(step)
                 sampled = step
+            if self._crossed(cfg.train.eval_every, prev, step):
+                t_eval = time.time()
+                before = preproc.LAUNCHES["resize_norm"]
+                pool = eval_pool_fn()
+                self.eval_pool_launches += \
+                    preproc.LAUNCHES["resize_norm"] - before
+                panel = self.eval_metrics(pool)
+                # the extractor's dim and fingerprint make each record
+                # self-describing; eval_seconds is the stall it cost
+                panel["fvd_proxy_dim"] = float(self._panel.extractor.dim)
+                self.logger.log(step, panel,
+                                eval_fingerprint=self._panel.fingerprint,
+                                eval_seconds=round(time.time() - t_eval, 2))
+                print(f"[step {step}] "
+                      + " ".join(f"{kk}={vv:.3f}"
+                                 for kk, vv in panel.items())
+                      + f" | eval {time.time() - t_eval:.1f}s")
             if self._crossed(cfg.train.checkpoint_every, prev, step):
                 self.ckpt.save(self.state)
             for every, hook in self._hooks:
@@ -189,8 +285,15 @@ class Trainer:
         feed = HostFeed(data_iterator, k, self.device,
                         depth=cfg.data.prefetch)
         current = {"batch": feed.next()}
+        # k = 1: the eval pool is the last ceil(eval_clips / B) stacks
+        # trained on (one batch of B clips would leave the Fréchet
+        # covariance rank-deficient); k > 1: the stack of the next call
+        recent: deque = deque(maxlen=max(1, -(-cfg.train.eval_clips
+                                              // cfg.train.batch_size)))
 
         def dispatch(step):
+            if k == 1 and cfg.train.eval_every:
+                recent.append(current["batch"])
             metrics = train_step_mod.multi_train_step(self.state,
                                                       *current["batch"])
             # the next stack's upload overlaps this call (a copy stream)
@@ -198,8 +301,13 @@ class Trainer:
                 current["batch"] = feed.next()
             return metrics
 
+        def eval_pool_fn():
+            return stack_eval_pool(
+                list(recent) if k == 1 else [current["batch"]],
+                cfg.train.eval_clips, cfg.model.image_size)
+
         try:
-            return self._run_loop(start, total, k, dispatch)
+            return self._run_loop(start, total, k, dispatch, eval_pool_fn)
         finally:
             feed.close()
             self.prefetch_wait_s = feed.wait_s
@@ -235,7 +343,23 @@ class Trainer:
             return train_step_mod.cached_multi_train_step(
                 self.state, pool, lengths, k, rh, rw)
 
-        return self._run_loop(start, total, k, dispatch)
+        cache: Dict[str, torch.Tensor] = {}
+
+        def eval_pool_fn():
+            # eval_clips windows, not clips: clips drawn with replacement
+            # and random starts, so a small store still gives the panel
+            # its clip budget; one kernel launch, kept for the whole run
+            if "pool" not in cache:
+                sel, frames = eval_windows(lengths_np, cfg.train.eval_clips,
+                                           cfg.model.video_length)
+                cache["pool"] = preproc.resize_normalize_gather(
+                    pool, upload(torch.from_numpy(sel).to(torch.int32),
+                                 pool.device),
+                    upload(torch.from_numpy(frames).to(torch.int32),
+                           pool.device), rh, rw)
+            return cache["pool"]
+
+        return self._run_loop(start, total, k, dispatch, eval_pool_fn)
 
 
 def make_data_iterator(cfg: ExperimentConfig, start_batch: int = 0

@@ -53,7 +53,9 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 
 def test_entry_points_refuse_a_missing_gpu(monkeypatch, tmp_path):
-    from mocogan_tpu_torch import generate, get_config
+    from mocogan_tpu_torch import eval_fvd, generate, get_config
+    from mocogan_tpu_torch.eval import fvd, i3d, parity
+    from mocogan_tpu_torch.eval.panel import PanelRunner
     from mocogan_tpu_torch.train import state
     from mocogan_tpu_torch.train.loop import Trainer
 
@@ -63,6 +65,11 @@ def test_entry_points_refuse_a_missing_gpu(monkeypatch, tmp_path):
                  lambda: state.create(cfg, device="cuda"),
                  lambda: Trainer(cfg, out_dir=str(tmp_path)),
                  lambda: Trainer(cfg, out_dir=str(tmp_path), resume=True),
-                 lambda: generate.main(["--run-dir", str(tmp_path)])):
+                 lambda: generate.main(["--run-dir", str(tmp_path)]),
+                 lambda: eval_fvd.main(["--run-dir", str(tmp_path)]),
+                 lambda: parity.main([]),
+                 lambda: PanelRunner(cfg),
+                 lambda: i3d.I3DExtractor(None),
+                 lambda: fvd.fvd(None, None)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

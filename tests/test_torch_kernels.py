@@ -91,6 +91,29 @@ def test_resize_norm_kernel_on_an_uploaded_stack(cuda):
 
 
 @pytest.mark.gpu
+def test_resize_norm_kernel_on_the_eval_pool(cuda):
+    """The device-cached eval pool's layout: one launch over B = 256
+    windows drawn with replacement from a 96 px store, short clips
+    wrapped."""
+    from mocogan_tpu_torch.train.loop import eval_windows
+
+    lengths = np.array([32, 9, 20, 32, 5, 16])
+    pool = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 256, (6, 32, 96, 96, 3), dtype=np.uint8)).to(cuda)
+    sel, frames = eval_windows(lengths, 256, 16)
+    rh, rw = preproc.resize_weights(96, 96, 64, cuda)
+    args = (pool, torch.from_numpy(sel).to(cuda, torch.int32),
+            torch.from_numpy(frames).to(cuda, torch.int32), rh, rw)
+    before = preproc.LAUNCHES["resize_norm"]
+    got = preproc.resize_normalize_gather(*args)
+    want = preproc.resize_normalize_gather_plain(*args)
+    torch.cuda.synchronize()
+    assert preproc.LAUNCHES["resize_norm"] == before + 1
+    assert got.shape == (256, 16, 64, 64, 3)
+    assert float((got - want).abs().max()) <= ATOL
+
+
+@pytest.mark.gpu
 def test_host_fed_steps_launch_the_kernel(cuda):
     """multi_train_step on an uploaded uint8 stack: one launch a step."""
     from mocogan_tpu_torch import get_config

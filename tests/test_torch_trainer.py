@@ -137,11 +137,21 @@ def test_cadence_rounding_and_the_no_op_guard(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("kw, err", [
-    ({"train.eval_every": 4}, NotImplementedError),
+    ({"train.eval_every": 4}, None),
     ({"train.eval_every": 4, "train.eval_clips": 0}, ValueError)])
 def test_what_raises_before_the_first_step(tmp_path, kw, err):
+    """eval_clips < 1 raises before any step; eval_every alone now trains
+    and logs a panel (it raised NotImplementedError before eval was
+    ported)."""
     cfg = get_config("mug", **{**TINY, "data.dataset": "synthetic", **kw})
     t = Trainer(cfg, out_dir=str(tmp_path), device="cpu")
+    if err is None:
+        t.run(make_data_iterator(cfg), total_steps=4)
+        panel = [r for r in t.logger.history if "fvd_proxy" in r]
+        assert t.state.step == 4 and [r["step"] for r in panel] == [4]
+        assert {"eval_fingerprint", "eval_seconds", "dv_margin"} \
+            <= set(panel[0])
+        return
     with pytest.raises(err):
         t.run(make_data_iterator(cfg), total_steps=2)
     with pytest.raises(err):
