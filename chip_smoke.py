@@ -6,17 +6,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, in order; any failure raises and exits non-zero:
   1. the card, from nvidia-smi, with the torch and CUDA versions;
   2. build the CUDA ingest kernel (csrc/resize_norm.cu) from the checkout;
-  3. hold the kernel against its plain PyTorch version at the mug shape
-     (B 16, T 16, 96 -> 64 px, C 3) and at the scaled shape (B 8, T 32,
-     128 -> 96 px, C 3), and time kernel, plain version and the library
-     yardstick (F.interpolate) with CUDA events, each rotating over the same
-     8 batch plans so that none sits in L2;
-  4. render a 96 px synthetic uint8 clip store and train the full-width mug
-     model (fp32, batch 16, 16 steps per call) through the device-cached
-     trainer; the kernel's launch count must equal the steps taken;
-     It also holds the kernel against its plain version on the
-     device-cached eval pool's layout (one launch over 256 windows drawn
-     with replacement from the store) and times that launch;
+  3. hold the kernel against its plain PyTorch version at the mug training
+     layout (B 16, T 16, 96 -> 64 px, C 3), and time kernel, plain version
+     and the library yardstick (F.interpolate) with CUDA events, each
+     rotating over the same 8 batch plans so that none sits in L2; then
+     the same on the device-cached eval pool's layout (one launch over 256
+     windows drawn with replacement from the store);
   4. render a 96 px synthetic uint8 clip store and train the full-width mug
      model (fp32, batch 16, 16 steps per call) through the device-cached
      trainer, with the quality panel (256 eval clips) after the last log
@@ -39,12 +34,29 @@ Phases, in order; any failure raises and exits non-zero:
      CLI twice with a digest record;
   8. generate() 16 clips, and hold generate(seed=3) on the card against the
      same call on the CPU (the noise is drawn on the host);
-  9. print the kernels line, then the result line.
+  9. the categorical model (config 4, 6 classes) on a 6-class store:
+     device-cached, 2 calls of 16 steps with the panel at the end; host-fed,
+     1 call with a checkpoint; the generate CLI with --labels from that
+     checkpoint; generate(seed, labels) on the card against the CPU;
+ 10. mug with train.update_order=sequential, device-cached, 2 calls;
+ 11. mug at the bf16 production recipe (batch 32, label_smoothing 0.1),
+     device-cached, 2 calls; params, BN stats and Adam moments stay fp32;
+     D_I and D_V logits of fixed clips on the card against the same bf16
+     forward on the CPU;
+ 12. the scaled config (config 5: 96x96x32f, batch 64, bf16, remat) at
+     train.num_devices=1 on a 128 px store: the kernel at its layout (B 64,
+     T 32, 128 -> 96 px) against its plain version and timed like the mug
+     layout; 2 calls of k = 32 with remat, then 1 call without;
+ 13. print the kernels line, then the result line.
+Every training phase prints the card's name and power limit, steps/s and
+the peak of torch.cuda.max_memory_allocated; each variant's kernel
+launches must equal its steps plus its eval-pool launches.
 fp32 runs in full fp32: TF32 is switched off for matmuls and cuDNN.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -58,6 +70,10 @@ KERNEL_TOL = 1e-5       # values in [-1, 1]; reordered fp32 sums
 GENERATE_TOL = 1e-4     # 4 BN-normalized deconv stages, card vs CPU fp32
 PANEL_TOL = 1e-4        # panel raw outputs, card vs CPU fp32, same clips
 I3D_TOL = 1e-3          # of the largest magnitude: 57 conv + BN units
+# bf16 D logits, card (cuDNN) vs CPU, of the largest |logit|: both round
+# each conv's output to bf16, and a tie rounded apart is a 2^-8 step that
+# four BN stages pass on
+BF16_LOGIT_TOL = 5e-2
 TRAIN_CALLS = 5         # trainer calls of k = 16 steps; the first warms up
 HOST_FED_CALLS = 3      # host-fed calls of k = 16 steps before the resume
 EVAL_CLIPS = 256        # the panel's clip budget (train.eval_clips)
@@ -124,11 +140,14 @@ def _check_kernel(pool, clip_ix, frame_ix, rh, rw, what) -> float:
     return err
 
 
-def _check_losses(recs) -> None:
-    keys = ("loss_di", "loss_dv", "loss_gen", "loss_gen_di", "loss_gen_dv")
+LOSS_KEYS = ("loss_di", "loss_dv", "loss_gen", "loss_gen_di", "loss_gen_dv")
+
+
+def _check_losses(recs, keys=LOSS_KEYS) -> None:
     recs = [r for r in recs if "loss_gen" in r]
-    if not all(math.isfinite(r[kk]) for r in recs for kk in keys):
-        raise AssertionError(f"non-finite losses: {recs}")
+    if not recs or not all(math.isfinite(r[kk]) for r in recs
+                           for kk in keys):
+        raise AssertionError(f"missing or non-finite losses: {recs}")
 
 
 def _check_panels(recs, steps, what) -> list:
@@ -153,6 +172,154 @@ def _max_err(a, b) -> float:
     return float((a.detach().cpu() - b.detach().cpu()).abs().max())
 
 
+def _bound(moved, flops, rates):
+    """(bound ms, "bytes" or "operations") from data-sheet rates, or
+    (None, None) for a card without them."""
+    if rates is None:
+        return None, None
+    bound_s = {"bytes": moved / rates[0], "operations": flops / rates[1]}
+    by = max(bound_s, key=bound_s.get)
+    return 1e3 * bound_s[by], by
+
+
+def _layout(pool, plans, rh, rw, s, rates, what) -> dict:
+    """The kernel on one training layout: held against its plain version on
+    plan 0, then kernel, plain version and F.interpolate (on the same
+    frames pre-gathered as f32 planes) timed rotating over all `plans`.
+    The bound of one launch counts the distinct frames plan 0 reads, the
+    tap tables and indices once, and the fp32 planes it writes."""
+    import torch
+    import torch.nn.functional as F
+
+    from mocogan_tpu_torch.ops import preproc
+
+    h, w, c = pool.shape[2:]
+    n = len(plans)
+    err = _check_kernel(pool, *plans[0], rh, rw, what)
+
+    def kern(i):
+        preproc.resize_normalize_gather_cuda(pool, *plans[i % n], rh, rw)
+
+    def plain(i):
+        preproc.resize_normalize_gather_plain(pool, *plans[i % n], rh, rw)
+
+    x_lib = [pool[sel.long()[:, None], ix.long()].permute(
+        0, 1, 4, 2, 3).reshape(-1, c, h, w).float() for sel, ix in plans]
+
+    def lib(i):
+        return F.interpolate(x_lib[i % n], size=(s, s), mode="bilinear",
+                             align_corners=False, antialias=False)
+
+    b, t = plans[0][1].shape
+    lib_out = (lib(0) * (2.0 / 255.0) - 1.0).view(
+        b, t, c, s, s).permute(0, 1, 3, 4, 2)
+    lib_err = float((lib_out - preproc.resize_normalize_gather_plain(
+        pool, *plans[0], rh, rw)).abs().max())
+    del lib_out
+    out = {"max_abs_err": err}
+    out["ms"], host_ms = _time_ms(kern, 50)
+    out["plain_ms"], _ = _time_ms(plain, 20)
+    out["library_ms"], _ = _time_ms(lib, 50)
+    library_one_ms, _ = _time_ms(lambda _: lib(0), 50)
+    del x_lib
+    sel, ix = plans[0]
+    frames_read = len({(i, f) for i, row in zip(sel.tolist(), ix.tolist())
+                       for f in row})
+    n_planes = b * t * c
+    moved = (frames_read * h * w * c + 4 * (rh.numel() + rw.numel())
+             + 4 * (b + b * t) + 4 * n_planes * s * s)
+    # bilinear needs 2 taps per output of each pass (a multiply and an add
+    # each), then the affine
+    flops = n_planes * (4 * s * w + 4 * s * s + 2 * s * s)
+    out["bound_ms"], out["bound_by"] = _bound(moved, flops, rates)
+    print(f"[kernel] {what}: device ms {out['ms']:.5f} (host "
+          f"{host_ms:.5f} ms per wrapper call), plain {out['plain_ms']:.5f},"
+          f" F.interpolate {out['library_ms']:.5f} over the {n} plans, "
+          f"{library_one_ms:.5f} on plan 0 alone (input pre-gathered in "
+          f"f32; its max err vs plain {lib_err:.2e})")
+    if out["bound_ms"] is None:
+        print(f"[kernel] {what}: no data-sheet rates for this card: no "
+              f"bound")
+    else:
+        print(f"[kernel] {what}: bound {out['bound_ms']:.6f} ms by "
+              f"{out['bound_by']} ({out['bound_ms'] / out['ms']:.3f} of it "
+              f"reached): {moved / 1e6:.2f} MB ({frames_read} distinct "
+              f"frames read) at {rates[0] / 1e12} TB/s, {flops / 1e9:.4f} "
+              f"GFLOP (2-tap) at {rates[1] / 1e12} TFLOP/s fp32")
+    return out
+
+
+def _plans(lengths, n, b, t, dev):
+    """n batch plans of the training stream (seed 0, epoch shuffle) as
+    (clip indices (B,), frame indices (B, T)) int32 on `dev`."""
+    import torch
+
+    from mocogan_tpu_torch.ops import sampling
+
+    out = []
+    for step in range(n):
+        sel, starts = sampling.batch_plan(0, step, b, lengths, t, True)
+        ix = sampling.window_indices(lengths, sel, starts, t)
+        out.append((sel.to(dev, torch.int32), ix.to(dev, torch.int32)))
+    return out
+
+
+def _train_variant(what, cfg, out_dir, dev, calls, smi, host_fed=False):
+    """Train `cfg` for `calls` calls of k steps (device-cached, or host-fed
+    from the native store), with log_every = k; check the kernel's launches
+    (= steps + eval-pool launches) and the losses; print steps/s after the
+    first call and the peak memory. Returns (trainer, summary)."""
+    import gc
+
+    import torch
+
+    from mocogan_tpu_torch.data import clips
+    from mocogan_tpu_torch.ops import preproc
+    from mocogan_tpu_torch.train.loop import Trainer
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    k = cfg.train.steps_per_call
+    trainer = Trainer(cfg, out_dir=out_dir, device=dev)
+    preproc.LAUNCHES["resize_norm"] = 0
+    t0 = time.perf_counter()
+    if host_fed:
+        trainer.run(clips.clip_batch_iterator(cfg, use_native=True),
+                    total_steps=calls * k)
+    else:
+        trainer.run_device_cached(total_steps=calls * k)
+    secs = time.perf_counter() - t0
+    launches = preproc.LAUNCHES["resize_norm"]
+    steps, ev = trainer.state.step, trainer.eval_pool_launches
+    if steps != calls * k or launches != steps + ev:
+        raise AssertionError(f"{what}: {steps} steps, {launches} kernel "
+                             f"launches, {ev} for the eval pool")
+    keys = LOSS_KEYS + (("loss_aux_d", "loss_aux_g")
+                        if cfg.model.conditional else ())
+    recs = trainer.logger.history
+    _check_losses(recs, keys)
+    windows = [r for r in recs if "steps_per_sec" in r]
+    warm = windows[1:] or windows
+    sps = len(warm) * k / sum(k / r["steps_per_sec"] for r in warm)
+    peak = torch.cuda.max_memory_allocated()
+    m, t = cfg.model, cfg.train
+    print(f"[{what}] {smi}: {m.image_size}x{m.image_size}x"
+          f"{m.video_length}f {m.compute_dtype}, remat {m.remat}, "
+          f"{t.update_order}, batch {t.batch_size}: {steps} steps "
+          f"({calls} calls of k {k}) in {secs:.2f} s; "
+          f"{sps:.3f} steps/s ({'after the first call' if calls > 1 else 'one call, warm-up included'}); "
+          f"peak memory {peak / 1e9:.2f} GB "
+          f"({resident / 1e9:.2f} GB resident before the phase); kernel "
+          f"launches {launches} = {steps} steps + {ev} eval pool; last "
+          f"losses " + json.dumps({kk: round(windows[-1][kk], 5)
+                                   for kk in keys}))
+    return trainer, {"steps_per_s": sps, "peak_gb": peak / 1e9,
+                     "launches": launches - ev, "eval_pool": ev}
+
+
 def main() -> int:
     import torch
 
@@ -164,8 +331,6 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    import torch.nn.functional as F
-
     import numpy as np
 
     from mocogan_tpu_torch import eval_fvd as eval_fvd_cli
@@ -175,7 +340,7 @@ def main() -> int:
     from mocogan_tpu_torch.eval import i3d, parity
     from mocogan_tpu_torch.eval.panel import PanelRunner
     from mocogan_tpu_torch.models import discriminators, generator
-    from mocogan_tpu_torch.ops import preproc, sampling
+    from mocogan_tpu_torch.ops import preproc
     from mocogan_tpu_torch.train.loop import Trainer, eval_windows
     from mocogan_tpu_torch.utils import cuda_build
 
@@ -216,81 +381,18 @@ def main() -> int:
         print(f"[data] {pool_np.shape} uint8 store, {pool_np.nbytes / 1e6:.1f}"
               f" MB, rendered in {time.perf_counter() - t0:.1f} s")
 
-        # ---- 3. kernel vs plain at the mug and scaled shapes --------------
+        # ---- 3. kernel vs plain at the mug and eval-pool layouts ----------
         pool = torch.from_numpy(pool_np).to(dev)
         lengths = torch.from_numpy(lengths_np)
         h, w, c = pool.shape[2:]
         s = m.image_size
         rh, rw = preproc.resize_weights(h, w, s, dev)
-        plans = []
-        for step in range(8):   # 8 plans: ~57 MB of frames, more than L2
-            sel, starts = sampling.batch_plan(0, step, b, lengths,
-                                              m.video_length, True)
-            ix = sampling.window_indices(lengths, sel, starts, m.video_length)
-            plans.append((sel.to(dev, torch.int32), ix.to(dev, torch.int32)))
-        err = _check_kernel(pool, *plans[0], rh, rw, "mug")
-        # the scaled config's ingest: B 8, T 32, 128 -> 96 px, C 3, on a
-        # random pool of 12 clips x 40 frames
-        gen = torch.Generator().manual_seed(0)
-        pool_sc = torch.randint(0, 256, (12, 40, 128, 128, 3), generator=gen,
-                                dtype=torch.uint8).to(dev)
-        err_sc = _check_kernel(
-            pool_sc,
-            torch.randint(0, 12, (8,), generator=gen,
-                          dtype=torch.int32).to(dev),
-            torch.randint(0, 40, (8, 32), generator=gen,
-                          dtype=torch.int32).to(dev),
-            *preproc.resize_weights(128, 128, 96, dev), "scaled")
-        del pool_sc
-
-        def kern(i):
-            preproc.resize_normalize_gather_cuda(pool, *plans[i % 8], rh, rw)
-
-        def plain(i):
-            preproc.resize_normalize_gather_plain(pool, *plans[i % 8], rh, rw)
-
-        # F.interpolate on the same 8 plans, each pre-gathered as f32 planes
-        x_lib = [pool[sel.long()[:, None], ix.long()].permute(
-            0, 1, 4, 2, 3).reshape(-1, c, h, w).float() for sel, ix in plans]
-
-        def lib(i):
-            return F.interpolate(x_lib[i % 8], size=(s, s), mode="bilinear",
-                                 align_corners=False, antialias=False)
-
-        lib_out = (lib(0) * (2.0 / 255.0) - 1.0).view(
-            b, m.video_length, c, s, s).permute(0, 1, 3, 4, 2)
-        lib_err = float((lib_out - preproc.resize_normalize_gather_plain(
-            pool, *plans[0], rh, rw)).abs().max())
-        kernel_ms, kernel_host_ms = _time_ms(kern, 50)
-        plain_ms, _ = _time_ms(plain, 20)
-        library_ms, _ = _time_ms(lib, 50)
-        library_one_ms, _ = _time_ms(lambda _: lib(0), 50)
-        del x_lib
-        n_planes = b * m.video_length * c
-        moved = (n_planes * h * w + 4 * (rh.numel() + rw.numel())
-                 + 4 * (b + b * m.video_length) + 4 * n_planes * s * s)
-        # bilinear needs 2 taps per output of each pass (a multiply and an
-        # add each), then the affine
-        flops = n_planes * (4 * s * w + 4 * s * s + 2 * s * s)
-        print(f"[kernel] device ms {kernel_ms:.5f} (host {kernel_host_ms:.5f}"
-              f" ms per wrapper call), plain {plain_ms:.5f}, F.interpolate "
-              f"{library_ms:.5f} over the 8 plans, {library_one_ms:.5f} on "
-              f"plan 0 alone (input pre-gathered in f32; its max err vs "
-              f"plain {lib_err:.2e})")
         rates = RATES.get(smi.rsplit(",", 1)[0].strip())
-        bound_ms = bound_by = None
-        if rates is None:
-            print(f"[kernel] no data-sheet rates for {smi!r}: no bound")
-        else:
-            bw, peak = rates
-            bound_s = {"bytes": moved / bw, "operations": flops / peak}
-            bound_by = max(bound_s, key=bound_s.get)
-            bound_ms = 1e3 * bound_s[bound_by]
-            print(f"[kernel] bound {bound_ms:.6f} ms by {bound_by} "
-                  f"({bound_ms / kernel_ms:.3f} of it reached): "
-                  f"{moved / 1e6:.2f} MB at {bw / 1e12} TB/s, "
-                  f"{flops / 1e9:.4f} GFLOP (2-tap) at {peak / 1e12} "
-                  f"TFLOP/s fp32")
+        # 8 plans: ~57 MB of frames, more than L2
+        plans = _plans(lengths, 8, b, m.video_length, dev)
+        lay_mug = _layout(pool, plans, rh, rw, s, rates,
+                          f"mug layout (B {b}, T {m.video_length}, "
+                          f"{h} -> {s} px)")
 
         # the device-cached eval pool's layout: EVAL_CLIPS windows drawn
         # with replacement (the trainer's draws), one launch
@@ -313,8 +415,7 @@ def main() -> int:
                     + 4 * EVAL_CLIPS * (1 + m.video_length)
                     + 4 * n_ev * s * s)
         flops_ev = n_ev * (4 * s * w + 4 * s * s + 2 * s * s)
-        eval_bound_ms = (None if rates is None else
-                         1e3 * max(moved_ev / rates[0], flops_ev / rates[1]))
+        eval_bound_ms, _ = _bound(moved_ev, flops_ev, rates)
         print(f"[kernel] eval-pool launch ({EVAL_CLIPS} windows, "
               f"{frames_read} distinct frames): device ms {eval_ms:.5f}, "
               f"plain {eval_plain_ms:.5f}, bound {eval_bound_ms} ms "
@@ -339,9 +440,9 @@ def main() -> int:
         _check_panels(recs, [steps], "device-cached")
         warm = [r for r in recs if "steps_per_sec" in r][1:]
         sps = len(warm) * k / sum(k / r["steps_per_sec"] for r in warm)
-        print(f"[train] device-cached mug fp32 batch {b}, k {k}: {steps} "
-              f"steps in {train_s:.2f} s; {sps:.3f} steps/s after the first "
-              f"call; peak memory "
+        print(f"[train] {smi}: device-cached mug fp32 batch {b}, k {k}: "
+              f"{steps} steps in {train_s:.2f} s; {sps:.3f} steps/s after "
+              f"the first call; peak memory "
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
         print(f"[train] last losses " + json.dumps(
             {kk: v for kk, v in warm[-1].items() if kk.startswith("loss")}))
@@ -401,7 +502,8 @@ def main() -> int:
         recs_hf = [r for r in trainer_hf.logger.history
                    if "steps_per_sec" in r]
         save = trainer_hf.ckpt.last_save
-        print(f"[host-fed] mug fp32 batch {b}, k {k}: {steps_hf} steps in "
+        print(f"[host-fed] {smi}: mug fp32 batch {b}, k {k}: {steps_hf} "
+              f"steps in "
               f"{hf_s:.2f} s; call 2: {recs_hf[1]['steps_per_sec']:.3f} "
               f"steps/s, call 3 (its window holds the step-{2 * k} "
               f"checkpoint, sample grid and panel): "
@@ -565,22 +667,175 @@ def main() -> int:
         if not gen_err <= GENERATE_TOL:
             raise AssertionError(f"generate card vs CPU: {gen_err}")
 
-    # ---- 9. result ---------------------------------------------------------
+        # ---- 9. the categorical model -------------------------------------
+        cat_dir = synthetic.write_store(os.path.join(tmp, "store_cat"),
+                                        clips=96, frames=32, size=96,
+                                        classes=6)
+        cat = {"data.data_dir": cat_dir, "train.log_every": k}
+        cfg_cat = get_config("categorical", **cat, **{
+            "train.eval_every": 2 * k, "train.eval_clips": EVAL_CLIPS})
+        tr_cat, v_cat = _train_variant(
+            "categorical device-cached", cfg_cat,
+            os.path.join(tmp, "run_cat"), dev, 2, smi)
+        _check_panels(tr_cat.logger.history, [2 * k], "categorical")
+        run_cat_hf = os.path.join(tmp, "run_cat_hf")
+        tr_cat_hf, v_cat_hf = _train_variant(
+            "categorical host-fed", get_config("categorical", **cat, **{
+                "data.device_cache": False, "train.checkpoint_every": k}),
+            run_cat_hf, dev, 1, smi, host_fed=True)
+        labels = list(range(cfg_cat.model.n_classes))
+        grid, vids_cat = generate_cli.main(
+            ["--config", "categorical", "--run-dir", run_cat_hf, "--n",
+             str(len(labels)), "--seed", "5", "--labels",
+             *map(str, labels), "--out", os.path.join(run_cat_hf, "g.gif")])
+        if not (os.path.getsize(grid) > 0
+                and tuple(vids_cat.shape) == (len(labels), m.video_length, s,
+                                              s, m.channels)
+                and torch.isfinite(vids_cat).all()
+                and vids_cat.abs().max() <= 1.0):
+            raise AssertionError(f"categorical generate CLI: {grid}, "
+                                 f"{tuple(vids_cat.shape)}")
+        g_cat = tr_cat.state.nets["gen"]
+        g_cat_cpu = generator.init(cfg_cat.model, torch.Generator()).eval()
+        g_cat_cpu.load_state_dict({kk: v.cpu()
+                                   for kk, v in g_cat.state_dict().items()})
+        lab = torch.tensor([0, 5, 2])
+        cat_err = _max_err(generator.generate(g_cat, 3, seed=3, labels=lab),
+                           generator.generate(g_cat_cpu, 3, seed=3,
+                                              labels=lab))
+        print(f"[categorical] generate CLI --labels {labels} -> "
+              f"{os.path.relpath(grid, tmp)}; generate(seed=3, labels="
+              f"{lab.tolist()}) card vs CPU max_abs_err {cat_err:.3e} (tol "
+              f"{GENERATE_TOL})")
+        if not cat_err <= GENERATE_TOL:
+            raise AssertionError(f"categorical generate card vs CPU: "
+                                 f"{cat_err}")
+        del tr_cat, tr_cat_hf, g_cat
+
+        # ---- 10. mug, sequential update order ------------------------------
+        mug = {"data.data_dir": cfg.data.data_dir, "train.log_every": k}
+        tr, v_seq = _train_variant(
+            "mug sequential", get_config("mug", **mug, **{
+                "train.update_order": "sequential"}),
+            os.path.join(tmp, "run_seq"), dev, 2, smi)
+        print(f"[mug sequential] {v_seq['steps_per_s']:.3f} steps/s against "
+              f"the simultaneous order's {sps:.3f} (phase 4)")
+        del tr
+
+        # ---- 11. mug at the bf16 production recipe -------------------------
+        cfg_bf = get_config("mug", **mug, **{
+            "train.batch_size": 32, "model.compute_dtype": "bfloat16",
+            "train.label_smoothing": 0.1})
+        tr_bf, v_bf = _train_variant("mug bf16", cfg_bf,
+                                     os.path.join(tmp, "run_bf16"), dev, 2,
+                                     smi)
+        f32 = torch.float32
+        for net_name, net in tr_bf.state.nets.items():
+            moments = [t for st in tr_bf.state.opt[net_name].state.values()
+                       for kk, t in st.items() if kk != "step"]
+            if not all(t.dtype == f32 for t in [*net.parameters(),
+                                                 *net.buffers(), *moments]):
+                raise AssertionError(f"bf16 run: {net_name} holds non-fp32 "
+                                     f"params, stats or moments")
+        # D logits of 4 fixed clips (mug plan 0), eval mode, card vs CPU
+        clips4 = preproc.resize_normalize_gather_cuda(
+            pool, *plans[0], rh, rw)[:4]
+        logit_err = {}
+        for net_name, x in (("di", clips4[:, 0]), ("dv", clips4)):
+            apply = (discriminators.image_apply if net_name == "di"
+                     else lambda d, v, **kw: discriminators.video_apply(
+                         d, v, **kw)[0])
+            init = (discriminators.image_init if net_name == "di"
+                    else discriminators.video_init)
+            net = tr_bf.state.nets[net_name]
+            cpu = {}
+            for dt in ("bfloat16", "float32"):
+                d = init(dataclasses.replace(cfg_bf.model, compute_dtype=dt),
+                         torch.Generator())
+                d.load_state_dict({kk: v.cpu()
+                                   for kk, v in net.state_dict().items()})
+                with torch.no_grad():
+                    cpu[dt] = apply(d, x.cpu(), train=False)
+            with torch.no_grad():
+                card = apply(net, x, train=False).cpu()
+            scale = float(cpu["bfloat16"].abs().max())
+            logit_err[net_name] = (_max_err(card, cpu["bfloat16"]) / scale,
+                                   _max_err(cpu["float32"], cpu["bfloat16"])
+                                   / scale)
+        print(f"[mug bf16] D logits of 4 fixed clips, eval mode, max err / "
+              f"max |logit| (tol {BF16_LOGIT_TOL}): card vs CPU at bf16 "
+              + ", ".join(f"{kk} {a:.2e}" for kk, (a, _) in
+                          logit_err.items())
+              + "; for scale, CPU fp32 vs CPU bf16 "
+              + ", ".join(f"{kk} {b_:.2e}" for kk, (_, b_) in
+                          logit_err.items()))
+        if not max(a for a, _ in logit_err.values()) <= BF16_LOGIT_TOL:
+            raise AssertionError(f"bf16 D logits card vs CPU: {logit_err}")
+        del tr_bf
+
+        # ---- 12. the scaled config on one card -----------------------------
+        sc = get_config("scaled", **{"train.num_devices": 1})
+        sc_dir = synthetic.write_store(
+            os.path.join(tmp, "store_scaled"), clips=96,
+            frames=sc.model.video_length + 4, size=sc.data.raw_size)
+        pool_sc_np, lengths_sc_np, _ = clips.load_pool(sc_dir)
+        pool_sc = torch.from_numpy(pool_sc_np).to(dev)
+        lengths_sc = torch.from_numpy(lengths_sc_np)
+        s_sc = sc.model.image_size
+        lay_sc = _layout(
+            pool_sc, _plans(lengths_sc, 8, sc.train.batch_size,
+                            sc.model.video_length, dev),
+            *preproc.resize_weights(pool_sc.shape[2], pool_sc.shape[3],
+                                    s_sc, dev), s_sc, rates,
+            f"scaled layout (B {sc.train.batch_size}, T "
+            f"{sc.model.video_length}, {pool_sc.shape[2]} -> {s_sc} px)")
+        del pool_sc
+        k_sc = sc.train.steps_per_call
+        scaled = {"data.data_dir": sc_dir, "train.num_devices": 1,
+                  "train.log_every": k_sc}
+        tr, v_sc = _train_variant("scaled", get_config("scaled", **scaled),
+                                  os.path.join(tmp, "run_scaled"), dev, 2,
+                                  smi)
+        del tr
+        tr, v_sc_nr = _train_variant(
+            "scaled, remat off", get_config("scaled", **scaled, **{
+                "model.remat": False}),
+            os.path.join(tmp, "run_scaled_nr"), dev, 1, smi)
+        del tr
+        print(f"[scaled] without remat: "
+              f"{v_sc_nr['steps_per_s'] / v_sc['steps_per_s'] - 1:+.1%} "
+              f"steps/s ({v_sc_nr['steps_per_s']:.3f} against "
+              f"{v_sc['steps_per_s']:.3f} with remat) and "
+              f"{v_sc_nr['peak_gb'] - v_sc['peak_gb']:+.2f} GB of peak "
+              f"memory ({v_sc_nr['peak_gb']:.2f} against "
+              f"{v_sc['peak_gb']:.2f} GB)")
+
+    # ---- 13. result --------------------------------------------------------
+    variants = {"categorical_cached": v_cat, "categorical_host_fed": v_cat_hf,
+                "sequential": v_seq, "bf16": v_bf, "scaled": v_sc,
+                "scaled_no_remat": v_sc_nr}
     # the eval pools of the training runs and of the two eval_fvd calls
     by_path = {"device_cached": launches_dc - ev_dc,
                "host_fed": launches_hf - ev_hf,
-               "eval_pool": ev_dc + ev_hf + ev_r + ev_cli}
+               **{kk: v["launches"] for kk, v in variants.items()},
+               "eval_pool": ev_dc + ev_hf + ev_r + ev_cli + sum(
+                   v["eval_pool"] for v in variants.values())}
     print(json.dumps({"kernels": [{
         "name": "resize_norm", "route": "cuda",
         "source": "mocogan_tpu_torch/csrc/resize_norm.cu",
         "replaces": "mocogan_tpu/ops/preproc.py:90",
         "launches": sum(by_path.values()), "launches_by_path": by_path,
-        "max_abs_err": max(err, err_sc, err_hf, err_ev), "ms": kernel_ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "bound_frac": None if bound_ms is None else bound_ms / kernel_ms,
-        "library_ms": library_ms, "eval_pool_ms": eval_ms,
+        "max_abs_err": max(lay_mug["max_abs_err"], lay_sc["max_abs_err"],
+                           err_hf, err_ev),
+        "ms": lay_mug["ms"], "plain_ms": lay_mug["plain_ms"],
+        "bound_ms": lay_mug["bound_ms"], "bound_by": lay_mug["bound_by"],
+        "bound_frac": (None if lay_mug["bound_ms"] is None
+                       else lay_mug["bound_ms"] / lay_mug["ms"]),
+        "library_ms": lay_mug["library_ms"], "eval_pool_ms": eval_ms,
         "eval_pool_plain_ms": eval_plain_ms,
-        "eval_pool_bound_ms": eval_bound_ms}]}))
+        "eval_pool_bound_ms": eval_bound_ms,
+        "scaled_layout": lay_sc}]}))
+    print(json.dumps({"variants": variants}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

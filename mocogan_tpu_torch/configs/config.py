@@ -73,6 +73,9 @@ class TrainConfig:
     d_learning_rate: Optional[float] = None
     g_learning_rate: Optional[float] = None
 
+    # The JAX package's flattened-Adam layout switch, numerically identical
+    # by design; carried so its configs carry over. The port's torch Adam
+    # is unaffected by it.
     fused_adam: bool = False
 
     checkpoint_every: int = 2_000

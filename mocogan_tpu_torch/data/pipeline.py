@@ -87,19 +87,30 @@ class ThreadedPrefetcher:
 
 
 def _stacks(it: Iterator[Any], k: int, pin: bool
-            ) -> Iterator[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
-    """(batches (K, B, ...), frame_idx (K, B, T) or None) host tensors of k
-    batches each, in pinned memory where `pin`; a fresh tensor per stack.
+            ) -> Iterator[Tuple[torch.Tensor, Optional[torch.Tensor],
+                                Optional[torch.Tensor]]]:
+    """(batches (K, B, ...), frame_idx (K, B, T) or None, labels (K, B) or
+    None) host tensors of k batches each, in pinned memory where `pin`; a
+    fresh tensor per stack. Labels are stacked when every batch has them.
     Stops when fewer than k batches are left."""
     while True:
         items = list(itertools.islice(it, k))
         if len(items) < k:
             return
-        parts = ([[b["raw"] for b in items], [b["frame_idx"] for b in items]]
-                 if isinstance(items[0], dict) else
-                 [[np.asarray(b[0], np.float32) for b in items]])
+        if isinstance(items[0], dict):
+            parts = [[b["raw"] for b in items],
+                     [b["frame_idx"] for b in items]]
+            labels = [b.get("labels") for b in items]
+        else:
+            parts = [[np.asarray(b[0], np.float32) for b in items], None]
+            labels = [b[1] for b in items]
+        parts.append(None if any(lab is None for lab in labels) else
+                     [np.asarray(lab, np.int32) for lab in labels])
         out = []
         for arrays in parts:
+            if arrays is None:
+                out.append(None)
+                continue
             buf = torch.empty((k, *arrays[0].shape), pin_memory=pin,
                               dtype=torch.from_numpy(
                                   np.empty(0, arrays[0].dtype)).dtype)
@@ -107,16 +118,17 @@ def _stacks(it: Iterator[Any], k: int, pin: bool
             for j, a in enumerate(arrays):
                 host[j] = a
             out.append(buf)
-        yield out[0], (out[1] if len(out) > 1 else None)
+        yield tuple(out)
 
 
 class HostFeed:
     """Stacks of k host batches, uploaded to `device`.
 
     The iterator yields (videos (B, T, H, W, C) float32, labels) pairs or
-    {"raw" (B, T_raw, H, W, C) uint8, "frame_idx" (B, T) int32, ...}
+    {"raw" (B, T_raw, H, W, C) uint8, "frame_idx" (B, T) int32, "labels"}
     dicts; ``next()`` returns (batches (K, B, ...), frame_idx (K, B, T) or
-    None) on the device, as ``step.multi_train_step`` takes them. The
+    None, labels (K, B) int32 or None) on the device, as
+    ``step.multi_train_step`` takes them. The
     prefetch thread copies each stack once, from the host batches into
     pinned memory, and keeps `depth` stacks queued. ``next()`` starts the
     copy to the card on a side stream with ``non_blocking=True`` and makes
@@ -140,7 +152,8 @@ class HostFeed:
         """Seconds spent waiting for the prefetch thread."""
         return self._it.wait_s
 
-    def next(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    def next(self) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                            Optional[torch.Tensor]]:
         host = next(self._it)
         if self._stream is None:
             return host

@@ -8,7 +8,9 @@ D_V logits. One host copy then brings back the features and the scalars,
 and the Fréchet and spread statistics run in numpy on the host.
 
 G and D_V run with BN in eval mode (running statistics, no update), so a
-panel leaves the training state bit-identical.
+panel leaves the training state bit-identical. The categorical model's
+clips take labels drawn per generation chunk, as ``generate_chunked``
+draws them; generated clips are fp32 under any compute dtype.
 """
 
 from __future__ import annotations
@@ -115,9 +117,9 @@ class PanelRunner:
         if dv is not None:
             m = min(n, _DV_CLIPS)
             out["dv_gen"] = discriminators.video_apply(
-                dv, vids[:m], train=False).mean()
+                dv, vids[:m], train=False)[0].mean()
             out["dv_real"] = discriminators.video_apply(
-                dv, real[:m], train=False).mean()
+                dv, real[:m], train=False)[0].mean()
         return out
 
     @torch.no_grad()

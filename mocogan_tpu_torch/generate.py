@@ -5,6 +5,8 @@ an mp4.
 
     python -m mocogan_tpu_torch.generate --config toy --run-dir runs/toy \\
         --n 16 --seed 7
+    python -m mocogan_tpu_torch.generate --config categorical \\
+        --run-dir runs/categorical --n 4 --labels 0 1 2 3
 
 The noise is drawn on the host, so a seed gives the same clips on the card
 and on the CPU (``--device cpu``) up to fp32 rounding.
@@ -32,18 +34,14 @@ def main(argv=None) -> Tuple[str, torch.Tensor]:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--video-length", type=int, default=None)
     ap.add_argument("--labels", type=int, nargs="*", default=None,
-                    help="class labels for the categorical config (not "
-                         "ported yet)")
+                    help="class labels for the categorical config, one per "
+                         "clip (default: drawn from the seed)")
     ap.add_argument("--mp4", action="store_true")
     ap.add_argument("--individual", action="store_true",
                     help="also write one GIF per clip")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--set", nargs="*", metavar="K=V", dest="overrides")
     args = ap.parse_args(argv)
-    if args.labels is not None:
-        raise NotImplementedError(
-            "--labels: the categorical generator is not ported yet "
-            "(ROADMAP A10)")
 
     from mocogan_tpu_torch import get_config
     from mocogan_tpu_torch.models import generator
@@ -59,8 +57,10 @@ def main(argv=None) -> Tuple[str, torch.Tensor]:
     state = mngr.restore(train_state.create(cfg, device=device))
     print(f"[generate] restored step {state.step}")
 
+    labels = (None if args.labels is None else
+              torch.tensor(args.labels, dtype=torch.int64))
     vids = generator.generate(state.nets["gen"], args.n, seed=args.seed,
-                              video_length=args.video_length)
+                              video_length=args.video_length, labels=labels)
     u8 = generator.to_uint8(vids).cpu().numpy()
     out = args.out or os.path.join(
         args.run_dir, f"generated_step{state.step}_seed{args.seed}.gif")

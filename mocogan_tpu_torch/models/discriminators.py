@@ -6,13 +6,15 @@
        layer then 2 -> scalar logit.
 
 The heads flatten channels-last, as the JAX package does, so the dense
-weights keep its layout. The conditional class head (``fc_cls``) is not
-ported yet.
+weights keep its layout. The categorical model's D_V has a second head,
+``fc_cls`` (class logits), on the same flatten. Every layer runs in the
+config's compute dtype; the logits of both heads come out fp32 (their
+dense layers have a bias).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -44,9 +46,7 @@ class _Discriminator(nn.Module):
     def __init__(self, cfg: ModelConfig, conv, k, flat: int,
                  gen: torch.Generator):
         super().__init__()
-        if cfg.conditional:
-            raise NotImplementedError(
-                "the conditional D_V class head is not ported yet")
+        self.dtype = layers.compute_dtype(cfg.compute_dtype)
         cin = cfg.channels
         for i, cout in enumerate(_disc_widths(cfg.disc_features)):
             # bias only on the un-normalized first layer
@@ -58,7 +58,7 @@ class _Discriminator(nn.Module):
 
     def _trunk(self, h, strides, train, update):
         for i in range(_N_DOWN):
-            h = getattr(self, f"conv{i}")(h, strides[i])
+            h = getattr(self, f"conv{i}")(h, strides[i], self.dtype)
             if i > 0:
                 h = getattr(self, f"bn{i}")(h, train, update)
             h = layers.leaky_relu(h)
@@ -75,18 +75,26 @@ class ImageDiscriminator(_Discriminator):
 
     def forward(self, x: torch.Tensor, train: bool, update: bool = True):
         """x (N, C, H, W) -> logits (N, 1)."""
-        return self.fc(self._trunk(x, [2] * _N_DOWN, train, update))
+        h = self._trunk(x, [2] * _N_DOWN, train, update)
+        return self.fc(h, self.dtype)
 
 
 class VideoDiscriminator(_Discriminator):
     def __init__(self, cfg: ModelConfig, gen: torch.Generator):
-        super().__init__(cfg, layers.Conv3d, (4, 4, 4), _video_flat_dim(cfg),
-                         gen)
+        flat = _video_flat_dim(cfg)
+        super().__init__(cfg, layers.Conv3d, (4, 4, 4), flat, gen)
+        if cfg.conditional:
+            self.fc_cls = layers.Dense(flat, cfg.n_classes, gen)
 
-    def forward(self, x: torch.Tensor, train: bool, update: bool = True):
-        """x (B, C, T, H, W) -> logits (B, 1)."""
+    def forward(self, x: torch.Tensor, train: bool, update: bool = True
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """x (B, C, T, H, W) -> (logits (B, 1), class logits (B, K) or
+        None)."""
         strides = [_video_strides(i) for i in range(_N_DOWN)]
-        return self.fc(self._trunk(x, strides, train, update))
+        h = self._trunk(x, strides, train, update)
+        cls = (self.fc_cls(h, self.dtype) if hasattr(self, "fc_cls")
+               else None)
+        return self.fc(h, self.dtype), cls
 
 
 def image_init(cfg: ModelConfig, gen: torch.Generator) -> ImageDiscriminator:
@@ -104,6 +112,8 @@ def image_apply(di: ImageDiscriminator, x: torch.Tensor, *, train: bool,
 
 
 def video_apply(dv: VideoDiscriminator, x: torch.Tensor, *, train: bool,
-                update: bool = True) -> torch.Tensor:
-    """x (B, T, H, W, C) clips -> logits (B, 1)."""
+                update: bool = True
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """x (B, T, H, W, C) clips -> (logits (B, 1), class logits (B, K) or
+    None)."""
     return dv(x.permute(0, 4, 1, 2, 3), train, update)

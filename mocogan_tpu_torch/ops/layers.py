@@ -15,6 +15,12 @@ which is what ``bridge.py`` uses. What differs from the obvious torch call:
     fp32, eps 2e-5, affine ``x*inv + shift``, running stats
     ``0.9*old + 0.1*batch``. ``nn.BatchNorm`` keeps the unbiased variance
     and uses eps 1e-5.
+  * Compute dtype (``dtype``, fp32 or bf16): the input and the weight are
+    cast where the JAX package's ``_cast`` casts them; params stay fp32.
+    JAX adds a bias *after* the conv or product, so under bf16 a layer
+    with a bias gives fp32 (bf16 + fp32 promotes in both frameworks) and a
+    layer without one gives bf16. BN takes its statistics in fp32 and
+    applies its affine in the input's dtype.
 
 Initializers follow the DCGAN convention: normal(stddev=0.02) weights, zero
 biases, drawn on the CPU from an explicit ``torch.Generator``.
@@ -41,49 +47,81 @@ def same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config's ``model.compute_dtype``."""
+    if name not in _DTYPES:
+        raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, "
+                         f"got {name!r}")
+    return _DTYPES[name]
+
+
+def _cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return x if x.dtype == dtype else x.to(dtype)
+
+
+def _add_bias(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """y (N, C, ...) + b (C,), the JAX package's bias after the conv."""
+    return y + b.view((1, -1) + (1,) * (y.ndim - 2))
+
+
 def _conv_same(fn, x: torch.Tensor, w: torch.Tensor,
-               b: Optional[torch.Tensor], stride: Sequence[int]
-               ) -> torch.Tensor:
+               b: Optional[torch.Tensor], stride: Sequence[int],
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    x, w = _cast(x, dtype), _cast(w, dtype)
+    # fp32 lets the conv add the bias; otherwise it is added after, in fp32
+    b_in, b_after = (b, None) if dtype == torch.float32 else (None, b)
     pads = [same_pads(x.shape[2 + i], w.shape[2 + i], s)
             for i, s in enumerate(stride)]
     if all(lo == hi for lo, hi in pads):
-        return fn(x, w, b, stride=tuple(stride),
-                  padding=tuple(lo for lo, _ in pads))
-    # F.pad lists pads from the last dim backwards
-    flat = [p for lo, hi in reversed(pads) for p in (lo, hi)]
-    return fn(F.pad(x, flat), w, b, stride=tuple(stride))
+        y = fn(x, w, b_in, stride=tuple(stride),
+               padding=tuple(lo for lo, _ in pads))
+    else:
+        # F.pad lists pads from the last dim backwards
+        flat = [p for lo, hi in reversed(pads) for p in (lo, hi)]
+        y = fn(F.pad(x, flat), w, b_in, stride=tuple(stride))
+    return y if b_after is None else _add_bias(y, b_after)
 
 
 def dense(x: torch.Tensor, w: torch.Tensor,
-          b: Optional[torch.Tensor] = None) -> torch.Tensor:
+          b: Optional[torch.Tensor] = None,
+          dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """x (N, din) @ w (din, dout) [+ b]; w keeps the JAX layout."""
-    y = x @ w
+    y = _cast(x, dtype) @ _cast(w, dtype)
     return y + b if b is not None else y
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
-           stride: int = 2) -> torch.Tensor:
+           stride: int = 2, dtype: torch.dtype = torch.float32
+           ) -> torch.Tensor:
     """x (N, C, H, W), w (O, I, k, k), SAME padding."""
-    return _conv_same(F.conv2d, x, w, b, (stride, stride))
+    return _conv_same(F.conv2d, x, w, b, (stride, stride), dtype)
 
 
 def conv3d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
-           stride: Tuple[int, int, int]) -> torch.Tensor:
+           stride: Tuple[int, int, int], dtype: torch.dtype = torch.float32
+           ) -> torch.Tensor:
     """x (N, C, D, H, W), w (O, I, kd, kh, kw), SAME padding."""
-    return _conv_same(F.conv3d, x, w, b, stride)
+    return _conv_same(F.conv3d, x, w, b, stride, dtype)
 
 
 def deconv2d(x: torch.Tensor, w: torch.Tensor,
-             b: Optional[torch.Tensor] = None, stride: int = 2
-             ) -> torch.Tensor:
+             b: Optional[torch.Tensor] = None, stride: int = 2,
+             dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """SAME transposed conv, output = input * stride. w (I, O, k, k) is the
     JAX kernel flipped in space (see ``Deconv2d.from_jax``)."""
     k = w.shape[-1]
     if (k - stride) % 2 or k < stride:
         raise ValueError(f"deconv2d needs even k - stride >= 0, got k={k}, "
                          f"stride={stride}")
-    return F.conv_transpose2d(x, w, b, stride=stride,
-                              padding=(k - stride) // 2)
+    if dtype == torch.float32:
+        return F.conv_transpose2d(x, w, b, stride=stride,
+                                  padding=(k - stride) // 2)
+    y = F.conv_transpose2d(_cast(x, dtype), _cast(w, dtype), None,
+                           stride=stride, padding=(k - stride) // 2)
+    return y if b is None else _add_bias(y, b)
 
 
 def batchnorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -91,18 +129,21 @@ def batchnorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
               train: bool, eps: float = BN_EPS):
     """Normalize over all axes but dim 1 (channels).
 
-    Returns (y, batch_mean, batch_var); the batch stats are None in eval
-    mode, which normalizes with the running stats."""
+    Statistics are fp32; the affine runs in x's dtype, so a bf16 x gives a
+    bf16 y. Returns (y, batch_mean, batch_var); the batch stats are None in
+    eval mode, which normalizes with the running stats."""
     if train:
         red = [0] + list(range(2, x.ndim))
-        mean = x.mean(red)
-        var = (x * x).mean(red) - mean * mean
+        xf = x.float()
+        mean = xf.mean(red)
+        var = (xf * xf).mean(red) - mean * mean
     else:
         mean, var = running_mean, running_var
     inv = torch.rsqrt(var + eps) * scale
     shift = bias - mean * inv
     shape = (1, -1) + (1,) * (x.ndim - 2)
-    y = x * inv.view(shape) + shift.view(shape)
+    y = (x * _cast(inv, x.dtype).view(shape)
+         + _cast(shift, x.dtype).view(shape))
     return (y, mean, var) if train else (y, None, None)
 
 
@@ -154,8 +195,8 @@ class Dense(_Layer):
         self.w = nn.Parameter(normal((din, dout), gen, std))
         self.b = _bias(dout, bias)
 
-    def forward(self, x):
-        return dense(x, self.w, self.b)
+    def forward(self, x, dtype: torch.dtype = torch.float32):
+        return dense(x, self.w, self.b, dtype)
 
 
 class Conv2d(_Layer):
@@ -173,8 +214,9 @@ class Conv2d(_Layer):
     def _w_to_jax(self, a):
         return np.ascontiguousarray(a.transpose(2, 3, 1, 0))
 
-    def forward(self, x, stride: int = 2):
-        return conv2d(x, self.w, self.b, stride)
+    def forward(self, x, stride: int = 2,
+                dtype: torch.dtype = torch.float32):
+        return conv2d(x, self.w, self.b, stride, dtype)
 
 
 class Deconv2d(_Layer):
@@ -192,8 +234,9 @@ class Deconv2d(_Layer):
     def _w_to_jax(self, a):
         return np.ascontiguousarray(a.transpose(2, 3, 0, 1)[::-1, ::-1])
 
-    def forward(self, x, stride: int = 2):
-        return deconv2d(x, self.w, self.b, stride)
+    def forward(self, x, stride: int = 2,
+                dtype: torch.dtype = torch.float32):
+        return deconv2d(x, self.w, self.b, stride, dtype)
 
 
 class Conv3d(_Layer):
@@ -212,15 +255,17 @@ class Conv3d(_Layer):
     def _w_to_jax(self, a):
         return np.ascontiguousarray(a.transpose(2, 3, 4, 1, 0))
 
-    def forward(self, x, stride: Tuple[int, int, int]):
-        return conv3d(x, self.w, self.b, stride)
+    def forward(self, x, stride: Tuple[int, int, int],
+                dtype: torch.dtype = torch.float32):
+        return conv3d(x, self.w, self.b, stride, dtype)
 
 
 class BatchNorm(_Layer):
     """Hand-written BN; running stats are buffers ``mean`` and ``var``.
 
     ``forward(x, train, update)``: in train mode the batch stats normalize
-    and, when ``update`` is set, advance the running stats in place."""
+    and, when ``update`` is set, advance the running stats in place
+    (``advance``)."""
 
     def __init__(self, c: int):
         super().__init__()
@@ -229,12 +274,21 @@ class BatchNorm(_Layer):
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
 
+    def normalize(self, x, train: bool):
+        """(y, batch mean, batch var), the stats None in eval mode; the
+        running stats are left as they are."""
+        return batchnorm(x, self.scale, self.bias, self.mean, self.var,
+                         train=train)
+
+    @torch.no_grad()
+    def advance(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """running = 0.9 * running + 0.1 * batch, in place."""
+        m = BN_MOMENTUM
+        self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+        self.var.copy_(m * self.var + (1.0 - m) * var)
+
     def forward(self, x, train: bool, update: bool = True):
-        y, mean, var = batchnorm(x, self.scale, self.bias, self.mean,
-                                 self.var, train=train)
+        y, mean, var = self.normalize(x, train)
         if train and update:
-            with torch.no_grad():
-                m = BN_MOMENTUM
-                self.mean.copy_(m * self.mean + (1.0 - m) * mean)
-                self.var.copy_(m * self.var + (1.0 - m) * var)
+            self.advance(mean, var)
         return y

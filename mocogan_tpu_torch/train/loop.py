@@ -66,13 +66,13 @@ def eval_windows(lengths: np.ndarray, n: int, t: int
     return sel, frames
 
 
-def stack_eval_pool(stacks: Sequence[Tuple[torch.Tensor,
-                                           Optional[torch.Tensor]]],
+def stack_eval_pool(stacks: Sequence[Tuple[Optional[torch.Tensor], ...]],
                     n: int, size: int) -> torch.Tensor:
     """The first n clips of uploaded host-fed stacks ((K, B, ...) batches,
-    (K, B, T) frame indices or None), in order: float clips as they are,
-    uint8 clips through one launch of the ingest kernel."""
-    parts = [b.flatten(0, 1) for b, _ in stacks]
+    (K, B, T) frame indices or None, then anything else ``HostFeed.next``
+    returns), in order: float clips as they are, uint8 clips through one
+    launch of the ingest kernel."""
+    parts = [b.flatten(0, 1) for b, *_ in stacks]
     clips_ = parts[0] if len(parts) == 1 else torch.cat(parts)
     m = min(n, clips_.shape[0])
     if clips_.dtype != torch.uint8:
@@ -81,7 +81,7 @@ def stack_eval_pool(stacks: Sequence[Tuple[torch.Tensor,
     idx = torch.cat([
         (ix if ix is not None else torch.arange(
             t, dtype=torch.int32, device=b.device).expand(*b.shape[:2], t)
-         ).flatten(0, 1) for b, ix in stacks])
+         ).flatten(0, 1) for b, ix, *_ in stacks])
     rh, rw = preproc.resize_weights(clips_.shape[2], clips_.shape[3], size,
                                     clips_.device)
     return preproc.resize_normalize_gather(
@@ -324,7 +324,14 @@ class Trainer:
             return {}
         start, total = plan
 
-        pool_np, lengths_np, _ = clips.load_pool(cfg.data.data_dir)
+        pool_np, lengths_np, labels_np = clips.load_pool(cfg.data.data_dir)
+        labels = None
+        if cfg.model.conditional:
+            if len(labels_np) and labels_np.max() >= cfg.model.n_classes:
+                raise ValueError(
+                    f"dataset has {labels_np.max() + 1}+ classes but "
+                    f"model.n_classes={cfg.model.n_classes}")
+            labels = torch.from_numpy(labels_np)
         if pool_np.shape[1] < cfg.model.video_length:
             raise ValueError(
                 f"device cache: longest stored clip has {pool_np.shape[1]} "
@@ -341,7 +348,7 @@ class Trainer:
 
         def dispatch(step):
             return train_step_mod.cached_multi_train_step(
-                self.state, pool, lengths, k, rh, rw)
+                self.state, pool, lengths, k, rh, rw, labels=labels)
 
         cache: Dict[str, torch.Tensor] = {}
 

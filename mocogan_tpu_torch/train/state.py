@@ -3,6 +3,8 @@
 BatchNorm running stats live in the modules' buffers. Parameters are
 initialized on the CPU from the (seed, 0, "init") generator and then moved
 to the device, so a seed gives the same initial weights on any device.
+Params, BN stats and Adam moments are fp32 whatever ``model.compute_dtype``
+says; the nets cast to it where they compute.
 """
 
 from __future__ import annotations
@@ -55,10 +57,6 @@ def create(cfg: ExperimentConfig, seed: Optional[int] = None,
     raises when no GPU is visible unless ``device="cpu"``)."""
     dev = resolve_device(device)
     m = cfg.model
-    if m.compute_dtype != "float32":
-        raise NotImplementedError("only float32 compute is ported so far")
-    if m.remat:
-        raise NotImplementedError("remat is not ported yet")
     seed = cfg.train.seed if seed is None else seed
     gen = prng.generator(seed, 0, "init")
     nets: Dict[str, nn.Module] = {

@@ -1,16 +1,31 @@
-"""The MoCoGAN adversarial train step, simultaneous update order.
+"""The MoCoGAN adversarial train step, in either update order.
 
 Per step: one generator forward; D_I on S_1-sampled real vs detached fake
 frames; D_V on real vs detached fake clips; then the G loss, fooling both
-discriminators on the SAME fakes. Every gradient comes from start-of-step
-parameters:
-  * D gradients from L_DI + L_DV, which see only detached fakes;
-  * G gradients from L_G alone (a separate ``autograd.grad``), so L_G
-    never reaches the D parameters while still flowing through D into G.
-D_I and D_V run real and fake as separate BN batches, the running stats
-threaded real -> fake; the G-phase D passes run in train mode and discard
-their stats. Then one Adam update per net, skipped (params and moments
-untouched) on steps the every-k balance lever leaves out.
+discriminators on the SAME fakes. D_I and D_V run real and fake as
+separate BN batches, the running stats threaded real -> fake; the G-phase
+D passes run in train mode and leave the stats alone. The update order
+(``train.update_order``):
+  * "simultaneous": every gradient comes from start-of-step parameters.
+    D gradients come from L_DI + L_DV, which see only detached fakes; G
+    gradients from L_G alone (a separate ``autograd.grad``), so L_G never
+    reaches the D parameters while still flowing through D into G. Then
+    one Adam update per net.
+  * "sequential" (the JAX package's ``_sequential_train_step``): the same
+    D gradients and D updates, then G's loss through the *updated* D_I and
+    D_V, then G's update. JAX runs the generator twice with one key to get
+    the same fakes; here its one forward keeps its graph, detached for the
+    D phase and attached for the G phase. That is exact: G's params do not
+    change between the phases, and train-mode BN uses batch statistics.
+In both orders G's BN stats advance once and the Ds' in the D phase. An
+Adam update is skipped (params and moments untouched) on steps the
+every-k balance lever leaves out.
+
+The categorical model adds ``aux_loss_weight`` times the class
+cross-entropy of D_V's class head: on the real clips' labels and the fakes'
+drawn labels to L_DV (metric ``loss_aux_d``), on the fakes' labels to L_G
+(``loss_aux_g``). Under bf16 compute the real clips are cast once, here;
+the losses are fp32.
 
 ``cached_multi_train_step`` is the device-cached path: for each of k steps
 it plans clip windows on the host, gathers and resizes them from the
@@ -26,25 +41,27 @@ CPU.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 from torch.profiler import record_function
 
 from mocogan_tpu_torch.configs import ExperimentConfig
 from mocogan_tpu_torch.models import generator
-from mocogan_tpu_torch.ops import losses, preproc, sampling
+from mocogan_tpu_torch.ops import layers, losses, preproc, sampling
 from mocogan_tpu_torch.train.state import TrainState
 from mocogan_tpu_torch.utils import prng
 from mocogan_tpu_torch.utils.platform import upload
 
 Draws = Dict[str, torch.Tensor]
+Grads = Dict[str, Dict[str, torch.Tensor]]
 
 
 def draw_noise(cfg: ExperimentConfig, seed: int, step: int, batch: int,
                device) -> Draws:
-    """The step's noise: z_c, h0, eps (T, B, d_eps) and the S_1 frame
-    indices i_real, i_fake (B,), each from its own (seed, step, role)."""
+    """The step's noise: z_c, h0, eps (T, B, d_eps), the fakes' labels
+    (categorical model) and the S_1 frame indices i_real, i_fake (B,),
+    each from its own (seed, step, role)."""
     dev = torch.device(device)
     t = cfg.model.video_length
     d = generator.draw_latents(cfg.model, batch, seed, step, dev)
@@ -66,100 +83,176 @@ def draw_step(cfg: ExperimentConfig, seed: int, step: int,
     return d
 
 
-def _losses(state: TrainState, real: torch.Tensor, noise: Draws
-            ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
-    """(L_DI + L_DV, L_G, metrics). Advances the BN running stats of G and
-    of the D-phase D passes."""
+def _fake(state: TrainState, noise: Draws) -> torch.Tensor:
+    """Fake clips (B, T, C, H, W) with their graph; advances G's BN."""
+    return state.nets["gen"].sample(noise["z_c"], noise["h0"], noise["eps"],
+                                    train=True, labels=noise.get("labels"))
+
+
+def _d_losses(state: TrainState, real_cf: torch.Tensor, fake: torch.Tensor,
+              noise: Draws, labels: Optional[torch.Tensor]
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """L_DI + L_DV on real (B, T, C, H, W) and the detached fakes; advances
+    the D BN stats."""
     cfg = state.cfg
     smooth = cfg.train.label_smoothing
-    g, di = state.nets["gen"], state.nets["di"]
-    dv = state.nets.get("dv")
+    di, dv = state.nets["di"], state.nets.get("dv")
     metrics: Dict[str, torch.Tensor] = {}
-
-    fake = g.sample(noise["z_c"], noise["h0"], noise["eps"], train=True)
-    real_cf = real.permute(0, 1, 4, 2, 3)                 # (B, T, C, H, W)
-    real_frame = sampling.sample_frames(real_cf, noise["i_real"])
-    fake_frame = sampling.sample_frames(fake, noise["i_fake"])
-
-    di_real = di(real_frame, train=True)
-    di_fake = di(fake_frame.detach(), train=True)
+    fake = fake.detach()
+    di_real = di(sampling.sample_frames(real_cf, noise["i_real"]), train=True)
+    di_fake = di(sampling.sample_frames(fake, noise["i_fake"]), train=True)
     loss_d = metrics["loss_di"] = losses.d_loss(di_real, di_fake, smooth)
     if dv is not None:
-        real_v = real_cf.transpose(1, 2).contiguous()     # (B, C, T, H, W)
-        fake_v = fake.transpose(1, 2)
-        dv_real = dv(real_v, train=True)
-        dv_fake = dv(fake_v.detach(), train=True)
-        metrics["loss_dv"] = losses.d_loss(dv_real, dv_fake, smooth)
-        loss_d = loss_d + metrics["loss_dv"]
+        dv_real, cls_real = dv(real_cf.transpose(1, 2).contiguous(),
+                               train=True)
+        dv_fake, cls_fake = dv(fake.transpose(1, 2), train=True)
+        loss_dv = losses.d_loss(dv_real, dv_fake, smooth)
+        if cls_real is not None:
+            aux = (losses.categorical_loss(cls_real, labels)
+                   + losses.categorical_loss(cls_fake, noise["labels"]))
+            loss_dv = loss_dv + cfg.train.aux_loss_weight * aux
+            metrics["loss_aux_d"] = aux
+        metrics["loss_dv"] = loss_dv
+        loss_d = loss_d + loss_dv
+    return loss_d, metrics
 
-    loss_g = metrics["loss_gen_di"] = losses.g_loss(
-        di(fake_frame, train=True, update=False))
+
+def _g_losses(state: TrainState, fake: torch.Tensor, noise: Draws
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """L_G through the Ds as they are now, in train mode without a BN
+    update."""
+    cfg = state.cfg
+    di, dv = state.nets["di"], state.nets.get("dv")
+    metrics: Dict[str, torch.Tensor] = {}
+    loss_g = metrics["loss_gen_di"] = losses.g_loss(di(
+        sampling.sample_frames(fake, noise["i_fake"]), train=True,
+        update=False))
     if dv is not None:
-        metrics["loss_gen_dv"] = losses.g_loss(
-            dv(fake_v, train=True, update=False))
+        g_dv, cls = dv(fake.transpose(1, 2), train=True, update=False)
+        metrics["loss_gen_dv"] = losses.g_loss(g_dv)
         loss_g = loss_g + metrics["loss_gen_dv"]
+        if cls is not None:
+            aux = metrics["loss_aux_g"] = losses.categorical_loss(
+                cls, noise["labels"])
+            loss_g = loss_g + cfg.train.aux_loss_weight * aux
     metrics["loss_gen"] = loss_g
-    return loss_d, loss_g, metrics
+    return loss_g, metrics
 
 
-def compute_grads(state: TrainState, real: torch.Tensor, noise: Draws
-                  ) -> Tuple[Dict[str, Dict[str, torch.Tensor]],
-                             Dict[str, torch.Tensor]]:
-    """Per-net gradients {net: {param name: grad}} and the step's metrics."""
+def _grads(state: TrainState, loss: torch.Tensor,
+           names: Iterable[str]) -> Grads:
+    named = [(n, pn, p) for n in names
+             for pn, p in state.nets[n].named_parameters()]
+    gs = torch.autograd.grad(loss, [p for _, _, p in named])
+    out: Grads = {}
+    for (n, pn, _), g in zip(named, gs):
+        out.setdefault(n, {})[pn] = g
+    return out
+
+
+def _d_names(state: TrainState) -> List[str]:
+    return [n for n in ("di", "dv") if n in state.nets]
+
+
+def _real(state: TrainState, real: torch.Tensor) -> torch.Tensor:
+    """real (B, T, H, W, C) -> (B, T, C, H, W) in the compute dtype, cast
+    once for both Ds."""
+    dtype = layers.compute_dtype(state.cfg.model.compute_dtype)
+    return real.to(dtype).permute(0, 1, 4, 2, 3)
+
+
+def compute_grads(state: TrainState, real: torch.Tensor, noise: Draws,
+                  labels: Optional[torch.Tensor] = None
+                  ) -> Tuple[Grads, Dict[str, torch.Tensor]]:
+    """The simultaneous order's per-net gradients {net: {param name:
+    grad}} and the step's metrics."""
     with record_function("losses"):
-        loss_d, loss_g, metrics = _losses(state, real, noise)
-    grads: Dict[str, Dict[str, torch.Tensor]] = {}
+        real_cf = _real(state, real)
+        fake = _fake(state, noise)
+        loss_d, metrics = _d_losses(state, real_cf, fake, noise, labels)
+        loss_g, m_g = _g_losses(state, fake, noise)
     with record_function("grads"):
-        for loss, names in ((loss_d, [n for n in ("di", "dv")
-                                      if n in state.nets]),
-                            (loss_g, ["gen"])):
-            named = [(n, pn, p) for n in names
-                     for pn, p in state.nets[n].named_parameters()]
-            gs = torch.autograd.grad(loss, [p for _, _, p in named])
-            for (n, pn, _), gr in zip(named, gs):
-                grads.setdefault(n, {})[pn] = gr
-    return grads, {k: v.detach() for k, v in metrics.items()}
+        grads = _grads(state, loss_d, _d_names(state))
+        grads.update(_grads(state, loss_g, ["gen"]))
+    return grads, {k: v.detach() for k, v in {**metrics, **m_g}.items()}
+
+
+def _check_finite(state: TrainState, metrics: Dict[str, torch.Tensor]):
+    if state.debug_nans:
+        bad = [k for k, v in metrics.items() if not torch.isfinite(v)]
+        if bad:
+            raise FloatingPointError(f"non-finite {bad} at step {state.step}")
+
+
+def _update(state: TrainState, names: Iterable[str], grads: Grads) -> None:
+    """One Adam update of each net in `names`, unless the every-k lever
+    skips it this step."""
+    t = state.cfg.train
+    with record_function("adam"):
+        for name in names:
+            every = t.g_update_every if name == "gen" else t.d_update_every
+            if state.step % every:
+                continue
+            for pn, p in state.nets[name].named_parameters():
+                p.grad = grads[name][pn]
+            state.opt[name].step()
+            state.opt[name].zero_grad(set_to_none=True)
+
+
+def _sequential(state: TrainState, real: torch.Tensor, noise: Draws,
+                labels: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The sequential order's phases; returns the metrics."""
+    with record_function("losses"):
+        real_cf = _real(state, real)
+        fake = _fake(state, noise)
+        loss_d, metrics = _d_losses(state, real_cf, fake, noise, labels)
+    with record_function("grads"):
+        grads = _grads(state, loss_d, _d_names(state))
+    _check_finite(state, metrics)
+    _update(state, _d_names(state), grads)
+    with record_function("losses"):
+        loss_g, m_g = _g_losses(state, fake, noise)
+    with record_function("grads"):
+        grads = _grads(state, loss_g, ["gen"])
+    _check_finite(state, m_g)
+    _update(state, ["gen"], grads)
+    return {k: v.detach() for k, v in {**metrics, **m_g}.items()}
 
 
 def _check_order(cfg: ExperimentConfig) -> None:
     order = cfg.train.update_order
-    if order == "sequential":
-        raise NotImplementedError(
-            "train.update_order='sequential' is not ported yet")
-    if order != "simultaneous":
+    if order not in ("simultaneous", "sequential"):
         raise ValueError(f"train.update_order must be 'simultaneous' or "
                          f"'sequential', got {order!r}")
 
 
 def train_step(state: TrainState, real: torch.Tensor,
-               noise: Optional[Draws] = None) -> Dict[str, torch.Tensor]:
-    """One adversarial iteration on real (B, T, H, W, C) float32 in [-1, 1].
+               noise: Optional[Draws] = None,
+               labels: Optional[torch.Tensor] = None
+               ) -> Dict[str, torch.Tensor]:
+    """One adversarial iteration on real (B, T, H, W, C) float32 in [-1, 1]
+    with, for the categorical model, their labels (B,) on the same device.
     Updates `state` in place and returns the metrics (0-dim tensors on the
-    device). `noise` (as from ``draw_noise``) overrides the step's draws."""
+    device). `noise` (as from ``draw_noise``) overrides the step's draws.
+    With ``debug_nans`` a non-finite loss raises before the update of its
+    phase (in the sequential order the D update precedes G's loss)."""
     cfg = state.cfg
     _check_order(cfg)
     m = cfg.model
     want = (m.video_length, m.image_size, m.image_size, m.channels)
     if real.ndim != 5 or tuple(real.shape[1:]) != want:
         raise ValueError(f"real must be (B, {want}), got {tuple(real.shape)}")
+    if m.conditional and labels is None:
+        raise ValueError("the categorical model needs the real clips' labels")
     if noise is None:
         noise = draw_noise(cfg, state.seed, state.step, real.shape[0],
                            state.device)
-    grads, metrics = compute_grads(state, real, noise)
-    if state.debug_nans:
-        bad = [k for k, v in metrics.items() if not torch.isfinite(v)]
-        if bad:
-            raise FloatingPointError(f"non-finite {bad} at step {state.step}")
-    with record_function("adam"):
-        for name, net in state.nets.items():
-            every = (cfg.train.g_update_every if name == "gen"
-                     else cfg.train.d_update_every)
-            if state.step % every:
-                continue
-            for pn, p in net.named_parameters():
-                p.grad = grads[name][pn]
-            state.opt[name].step()
-            state.opt[name].zero_grad(set_to_none=True)
+    if cfg.train.update_order == "sequential":
+        metrics = _sequential(state, real, noise, labels)
+    else:
+        grads, metrics = compute_grads(state, real, noise, labels)
+        _check_finite(state, metrics)
+        _update(state, state.nets, grads)
     state.step += 1
     return metrics
 
@@ -168,7 +261,8 @@ def cached_multi_train_step(state: TrainState, pool: torch.Tensor,
                             lengths: torch.Tensor, k: int,
                             rh: Optional[torch.Tensor] = None,
                             rw: Optional[torch.Tensor] = None,
-                            draws: Optional[Sequence[Draws]] = None
+                            draws: Optional[Sequence[Draws]] = None,
+                            labels: Optional[torch.Tensor] = None
                             ) -> Dict[str, torch.Tensor]:
     """k steps with the whole clip store resident on the device.
 
@@ -176,8 +270,11 @@ def cached_multi_train_step(state: TrainState, pool: torch.Tensor,
     lengths: (N,) true frame counts (CPU); rh, rw: the resize weights
     (``preproc.resize_weights``), built here when not given. `draws`, one
     dict per step as from ``draw_step``, overrides the steps' draws.
-    Returns the metrics averaged over the k steps."""
+    labels: (N,) class of each clip (CPU), which the categorical model
+    needs. Returns the metrics averaged over the k steps."""
     cfg = state.cfg
+    if cfg.model.conditional and labels is None:
+        raise ValueError("the categorical model needs the pool's labels")
     _check_order(cfg)
     t, s = cfg.model.video_length, cfg.model.image_size
     if rh is None or rw is None:
@@ -194,15 +291,19 @@ def cached_multi_train_step(state: TrainState, pool: torch.Tensor,
                                                d["starts"], t)
             clip_ix = upload(d["sel"].to(torch.int32), pool.device)
             frame_ix = upload(frame_ix.to(torch.int32), pool.device)
+            lab = (None if labels is None else
+                   upload(torch.as_tensor(labels).cpu()[d["sel"]],
+                          state.device))
         with record_function("ingest"):
             real = preproc.resize_normalize_gather(pool, clip_ix, frame_ix,
                                                    rh, rw)
-        ms.append(train_step(state, real, d))
+        ms.append(train_step(state, real, d, lab))
     return {key: torch.stack([m[key] for m in ms]).mean() for key in ms[0]}
 
 
 def multi_train_step(state: TrainState, batches: torch.Tensor,
                      frame_idx: Optional[torch.Tensor] = None,
+                     labels: Optional[torch.Tensor] = None,
                      draws: Optional[Sequence[Draws]] = None
                      ) -> Dict[str, torch.Tensor]:
     """k = batches.shape[0] steps on a stack of host batches on the state's
@@ -214,9 +315,10 @@ def multi_train_step(state: TrainState, batches: torch.Tensor,
     pool (``stack.view(K*B, T_raw, H, W, C)``, clips j*B .. j*B + B - 1 at
     step j), so no step copies its batch. frame_idx: (K, B, T) int32 frame
     indices into T_raw, needed for uint8 stacks whose T_raw is not
-    ``video_length``. `draws`, one dict per step as from ``draw_noise``,
-    overrides the steps' noise. Returns the metrics averaged over the k
-    steps."""
+    ``video_length``. labels: (K, B) classes of the clips on the state's
+    device, which the categorical model needs. `draws`, one dict per step
+    as from ``draw_noise``, overrides the steps' noise. Returns the metrics
+    averaged over the k steps."""
     cfg = state.cfg
     _check_order(cfg)
     k, b, t_raw = batches.shape[:3]
@@ -248,5 +350,6 @@ def multi_train_step(state: TrainState, batches: torch.Tensor,
                                                        frame_idx[j], rh, rw)
         else:
             real = batches[j]
-        ms.append(train_step(state, real, d))
+        ms.append(train_step(state, real, d,
+                             None if labels is None else labels[j]))
     return {key: torch.stack([m[key] for m in ms]).mean() for key in ms[0]}

@@ -1,7 +1,10 @@
 """Where a training call spends its time, on the card.
 
     python -m mocogan_tpu_torch.utils.profiling --config mug [--host-fed]
-        [--out DIR]
+        [--out DIR] [--set K=V ...]
+
+``--set`` takes the train CLI's dotted overrides, e.g. ``--set
+model.compute_dtype=bfloat16 train.batch_size=32``.
 
 Renders the synthetic 96 px clip store, builds the state at the config's
 full width, warms up with one call of k = train.steps_per_call steps, times
@@ -48,11 +51,14 @@ def profile_call(cfg, device, out_dir=None, top: int = 15,
     from mocogan_tpu_torch.train import step as train_step
 
     k = cfg.train.steps_per_call
+    torch.cuda.reset_peak_memory_stats(device)
     state = train_state.create(cfg, device=device)
     feed = None
     with tempfile.TemporaryDirectory() as tmp:
-        synthetic.write_store(tmp, clips=96, frames=32,
-                              size=cfg.data.raw_size)
+        synthetic.write_store(tmp, clips=96,
+                              frames=max(32, cfg.model.video_length),
+                              size=cfg.data.raw_size,
+                              classes=cfg.model.n_classes)
         if host_fed:
             feed = HostFeed(clips.clip_batch_iterator(
                 dataclasses.replace(cfg, data=dataclasses.replace(
@@ -66,15 +72,16 @@ def profile_call(cfg, device, out_dir=None, top: int = 15,
                 current = feed.next()
                 return m
         else:
-            pool_np, lengths_np, _ = clips.load_pool(tmp)
+            pool_np, lengths_np, labels_np = clips.load_pool(tmp)
             pool = torch.from_numpy(pool_np).to(device)
             lengths = torch.from_numpy(lengths_np)
+            labels = torch.from_numpy(labels_np)
             rh, rw = preproc.resize_weights(pool.shape[2], pool.shape[3],
                                             cfg.model.image_size, device)
 
             def run():
                 return train_step.cached_multi_train_step(
-                    state, pool, lengths, k, rh, rw)
+                    state, pool, lengths, k, rh, rw, labels=labels)
 
         def call():
             return {key: float(v) for key, v in run().items()}
@@ -132,6 +139,7 @@ def _profile(call, k, device, out_dir, top, feed) -> dict:
     top_k = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:top]
     return {
         "device": torch.cuda.get_device_name(device),
+        "peak_memory_gb": torch.cuda.max_memory_allocated(device) / 1e9,
         "host_fed": feed is not None, "prefetch_wait_s": wait_s,
         "k": k, "call_s": plain_s, "steps_per_s": k / plain_s,
         "traced_call_s": traced_s,
@@ -153,16 +161,21 @@ def main(argv=None):
     ap.add_argument("--out", default=None, help="write trace.json here")
     ap.add_argument("--host-fed", action="store_true",
                     help="profile the host-fed trainer's call")
+    ap.add_argument("--set", nargs="*", metavar="K=V", dest="overrides",
+                    help="dotted config overrides, as the train CLI takes")
     args = ap.parse_args(argv)
 
     from mocogan_tpu_torch import get_config
+    from mocogan_tpu_torch.train.__main__ import parse_overrides
     from mocogan_tpu_torch.utils.platform import resolve_device
 
     device = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(json.dumps(profile_call(get_config(args.config), device,
-                                  args.out, host_fed=args.host_fed)))
+    cfg = get_config(args.config, **parse_overrides(args.overrides))
+    out = profile_call(cfg, device, args.out, host_fed=args.host_fed)
+    print(json.dumps({"config": cfg.name,
+                      "overrides": args.overrides or [], **out}))
 
 
 if __name__ == "__main__":

@@ -243,20 +243,22 @@ def test_host_feed_stacks_batches_in_order(store):
         stacks = [feed.next() for _ in range(3)]
     finally:
         feed.close()
-    for batches, frame_idx in stacks:
+    for batches, frame_idx, labels in stacks:
         assert batches.shape == (2, 4, T, 8, 10, 3)
         assert batches.dtype == torch.uint8 and frame_idx.dtype == torch.int32
+        assert labels.shape == (2, 4) and labels.dtype == torch.int32
         np.testing.assert_array_equal(
             batches.numpy(), np.stack([next(want)["raw"] for _ in range(2)]))
         assert frame_idx.tolist() == [[list(range(T))] * 4] * 2
     f32 = HostFeed(synthetic.batch_iterator(0, 2, t=3, size=8), 1,
                    torch.device("cpu"), depth=1)
-    batches, frame_idx = f32.next()
+    batches, frame_idx, labels = f32.next()
     f32.close()
     assert batches.shape == (1, 2, 3, 8, 8, 3) and frame_idx is None
+    assert labels.shape == (1, 2)
     short = HostFeed(iter([(np.zeros((1, 2, 4, 4, 3), np.float32), None)] * 3),
                      2, torch.device("cpu"), depth=1)
-    short.next()
+    assert short.next()[2] is None              # batches without labels
     with pytest.raises(StopIteration):
         short.next()
     short.close()

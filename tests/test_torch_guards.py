@@ -58,10 +58,16 @@ def test_entry_points_refuse_a_missing_gpu(monkeypatch, tmp_path):
     from mocogan_tpu_torch.eval.panel import PanelRunner
     from mocogan_tpu_torch.train import state
     from mocogan_tpu_torch.train.loop import Trainer
+    from mocogan_tpu_torch.utils import profiling
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_config("toy")
+    scaled = get_config("scaled", **{"train.num_devices": 1})
     for call in (lambda: state.create(cfg),
+                 lambda: state.create(scaled),
+                 lambda: state.create(get_config("categorical")),
+                 lambda: profiling.main(["--config", "scaled", "--set",
+                                         "train.num_devices=1"]),
                  lambda: state.create(cfg, device="cuda"),
                  lambda: Trainer(cfg, out_dir=str(tmp_path)),
                  lambda: Trainer(cfg, out_dir=str(tmp_path), resume=True),

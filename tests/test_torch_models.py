@@ -185,8 +185,8 @@ def test_video_discriminator(jstate, tiny_cfg, train):
     dv = bridge.load_net(
         tdisc.video_init(get_config("mug", **TINY).model, torch.Generator()),
         params["dv"], bn["dv"])
-    got = tdisc.video_apply(dv, torch.from_numpy(x), train=train)
-    assert got.shape == (4, 1)
+    got, cls = tdisc.video_apply(dv, torch.from_numpy(x), train=train)
+    assert got.shape == (4, 1) and cls is None
     _close(got.detach(), want)
     if train:
         _bn_close(bridge.bn_tree(dv), jax.tree.map(np.asarray, want_bn))

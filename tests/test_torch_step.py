@@ -154,16 +154,6 @@ def test_every_k_skip_leaves_params_and_moments(reference):
                    zip(before["gen"], s.nets["gen"].parameters()))
 
 
-def test_sequential_order_raises():
-    s = tstate.create(_tcfg(**{"train.update_order": "sequential"}),
-                      device="cpu")
-    with pytest.raises(NotImplementedError):
-        tstep.train_step(s, torch.zeros(8, 8, 32, 32, 3))
-    pool, lengths = _pool()
-    with pytest.raises(NotImplementedError):
-        tstep.cached_multi_train_step(s, pool, lengths, 1)
-
-
 def _pool():
     pool = np.stack([synthetic.render_clip(0, i, 12, 48)[0]
                      for i in range(6)])

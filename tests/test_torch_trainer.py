@@ -288,5 +288,22 @@ def test_generate_cli(toy_run, tmp_path, monkeypatch):
     npy, vids2 = main(args + ["--out", str(tmp_path / "d.gif"),
                               "--video-length", "5"])
     assert npy.endswith("d.npy") and np.load(npy).shape == (5, 64, 64, 3)
-    with pytest.raises(NotImplementedError, match="A10"):
-        main(args + ["--labels", "1"])
+    with pytest.raises(ValueError, match="unconditional"):
+        main(args + ["--labels", "1", "1", "1"])
+    # the categorical CLI writes a grid of the clips of the given classes
+    from mocogan_tpu_torch.utils.checkpoint import CheckpointManager
+
+    cat = ["--config", "categorical", "--device", "cpu", "--n", "2",
+           "--seed", "3", "--set", *SET]
+    run = str(tmp_path / "cat")
+    mngr = CheckpointManager(os.path.join(run, "checkpoints"))
+    s = tstate.create(get_config("categorical", **TINY), device="cpu")
+    mngr.save(s, wait=True)
+    mngr.close()
+    grid, vids = main(cat + ["--run-dir", run, "--labels", "0", "5"])
+    assert grid.endswith(".npy") and np.load(grid).shape == (8, 32, 64, 3)
+    assert tuple(vids.shape) == (2, 8, 32, 32, 3)
+    _, other = main(cat + ["--run-dir", run, "--labels", "5", "0"])
+    assert not torch.equal(vids, other)
+    with pytest.raises(ValueError, match="labels"):
+        main(cat + ["--run-dir", run, "--labels", "6", "0"])
