@@ -47,11 +47,22 @@ Phases, in order; any failure raises and exits non-zero:
      train.num_devices=1 on a 128 px store: the kernel at its layout (B 64,
      T 32, 128 -> 96 px) against its plain version and timed like the mug
      layout; 2 calls of k = 32 with remat, then 1 call without;
- 13. print the kernels line, then the result line.
+ 13. data parallel: the kernel at the per-rank mug layout (B 8 of 16)
+     against its plain version and timed; two ranks sharing card 0 over
+     gloo, each on its 8 rows of the global batch of 16, under
+     cudnn.deterministic: step 0's metrics, gradients and BN stats and one
+     device-cached call's mean metrics against one process on the global
+     batch, launches = steps on each rank, parameters bit-equal across the
+     ranks; mug steps/s with cudnn.deterministic on and off (alternating
+     calls); a one-rank NCCL world through the train CLI; with two or more
+     cards, two NCCL ranks on two cards through the train CLI (steps/s and
+     clips/s);
+ 14. print the kernels line, then the result line.
 Every training phase prints the card's name and power limit, steps/s and
 the peak of torch.cuda.max_memory_allocated; each variant's kernel
 launches must equal its steps plus its eval-pool launches.
 fp32 runs in full fp32: TF32 is switched off for matmuls and cuDNN.
+generate() runs under cudnn.deterministic, so two calls are bit-equal.
 """
 
 from __future__ import annotations
@@ -70,6 +81,13 @@ KERNEL_TOL = 1e-5       # values in [-1, 1]; reordered fp32 sums
 GENERATE_TOL = 1e-4     # 4 BN-normalized deconv stages, card vs CPU fp32
 PANEL_TOL = 1e-4        # panel raw outputs, card vs CPU fp32, same clips
 I3D_TOL = 1e-3          # of the largest magnitude: 57 conv + BN units
+# data parallel vs one process on the global batch, fp32: reductions split
+# over the ranks sum in another order (tests/test_torch_parallel.py)
+DP_METRIC_TOL = {"rtol": 2e-4, "atol": 2e-5}
+DP_GRAD_TOL = 1e-3      # of each gradient's largest magnitude, or
+DP_FLOOR_FACTOR = 2     # times the one process's own reordering floor
+DP_BN_TOL = 1e-5        # BN running stats, absolute
+DP_TIMEOUT_S = 300      # the spawned gloo ranks, start to end
 # bf16 D logits, card (cuDNN) vs CPU, of the largest |logit|: both round
 # each conv's output to bf16, and a tie rounded apart is a 2^-8 step that
 # four BN stages pass on
@@ -318,6 +336,326 @@ def _train_variant(what, cfg, out_dir, dev, calls, smi, host_fed=False):
                                    for kk in keys}))
     return trainer, {"steps_per_s": sps, "peak_gb": peak / 1e9,
                      "launches": launches - ev, "eval_pool": ev}
+
+
+def _step0(cfg, mesh, dev, pool, lengths, rh, rw, reverse=False):
+    """Step 0 from a fresh state by ``compute_grads`` on the rank's rows
+    of the step's plan (mesh None: the global batch; `reverse`: its rows
+    in reverse order, the same step summed in another order): gradients,
+    metrics and the BN buffers after it, on the host."""
+    import torch
+
+    from mocogan_tpu_torch.ops import preproc, sampling
+    from mocogan_tpu_torch.train import state as tstate
+    from mocogan_tpu_torch.train import step as tstep
+
+    st = tstate.create(cfg, device=dev, mesh=mesh)
+    d = tstep.shard_draws(tstep.draw_step(cfg, st.seed, 0, lengths, dev),
+                          mesh)
+    if reverse:
+        d = {kk: v.flip(1 if kk == "eps" else 0) for kk, v in d.items()}
+    ix = sampling.window_indices(lengths, d["sel"], d["starts"],
+                                 cfg.model.video_length)
+    real = preproc.resize_normalize_gather(
+        pool, d["sel"].to(dev, torch.int32), ix.to(dev, torch.int32), rh, rw)
+    grads, m0 = tstep.compute_grads(st, real, d, mesh=mesh)
+    return ({f"{n}.{pn}": g.cpu() for n, gs in grads.items()
+             for pn, g in gs.items()},
+            {kk: float(v) for kk, v in m0.items()},
+            {f"{n}.{kk}": v.cpu() for n, net in st.nets.items()
+             for kk, v in net.named_buffers()})
+
+
+def _steps(cfg, mesh, dev, pool, lengths, rh, rw, reverse=False) -> list:
+    """k device-cached steps from a fresh state, one
+    ``cached_multi_train_step`` call each so that every step's metrics
+    come back (`reverse`: each step's global batch in reverse row order);
+    returns (per-step metric dicts, the state)."""
+    from mocogan_tpu_torch.train import state as tstate
+    from mocogan_tpu_torch.train import step as tstep
+
+    st = tstate.create(cfg, device=dev, mesh=mesh)
+    out = []
+    for i in range(cfg.train.steps_per_call):
+        draws = None
+        if reverse:
+            d = tstep.draw_step(cfg, st.seed, i, lengths, dev)
+            draws = [{kk: v.flip(1 if kk == "eps" else 0)
+                      for kk, v in d.items()}]
+        m = tstep.cached_multi_train_step(st, pool, lengths, 1, rh, rw,
+                                          draws=draws, mesh=mesh)
+        out.append({kk: float(v) for kk, v in m.items()})   # host read
+    return out, st
+
+
+def _dp_call(cfg, mesh, dev, pool, lengths, rh, rw) -> dict:
+    """One rank's part of the data-parallel check (mesh None: one process
+    on the global batch): ``_step0``, then ``_steps``, timed. CPU tensors
+    and floats."""
+    import torch
+
+    from mocogan_tpu_torch.ops import preproc
+
+    out = dict(zip(("grads", "metrics0", "bn0"),
+                   _step0(cfg, mesh, dev, pool, lengths, rh, rw)))
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    preproc.LAUNCHES["resize_norm"] = 0
+    t0 = time.perf_counter()
+    out["metrics"], st = _steps(cfg, mesh, dev, pool, lengths, rh, rw)
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = preproc.LAUNCHES["resize_norm"]
+    out["steps"] = st.step
+    out["params"] = {f"{n}.{kk}": v.cpu() for n, net in st.nets.items()
+                     for kk, v in net.state_dict().items()}
+    return out
+
+
+def _dp_rank(rank: int, world: int, store: str, overrides: dict,
+             out_dir: str, device: str) -> None:
+    """A rank of the gloo world on `device` (``torch.multiprocessing``
+    target): ``_dp_call`` of the mug config with `overrides` on its rows
+    under cudnn.deterministic, saved to <out_dir>/rank<r>.pt."""
+    sys.path.insert(0, ROOT)
+    import torch
+
+    from mocogan_tpu_torch import get_config
+    from mocogan_tpu_torch.data import clips
+    from mocogan_tpu_torch.ops import preproc
+    from mocogan_tpu_torch.parallel import mesh as pmesh
+    from mocogan_tpu_torch.utils.platform import cudnn_deterministic
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    dev = torch.device(device)
+    pmesh.initialize_distributed(dev, backend="gloo", init_method=store)
+    try:
+        mesh = pmesh.make_mesh(world, 1, dev)
+        cfg = get_config("mug", **overrides)
+        pool_np, lengths_np, _ = clips.load_pool(cfg.data.data_dir)
+        pool = torch.from_numpy(pool_np).to(dev)
+        rh, rw = preproc.resize_weights(pool.shape[2], pool.shape[3],
+                                        cfg.model.image_size, dev)
+        with cudnn_deterministic():
+            out = _dp_call(cfg, mesh, dev, pool,
+                           torch.from_numpy(lengths_np), rh, rw)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _train_cli(args, out_dir, env=None) -> list:
+    """Run the train CLI in a process of its own; its log records."""
+    p = subprocess.run([sys.executable, "-m", "mocogan_tpu_torch.train",
+                        *args, "--out-dir", out_dir], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300,
+                       env={**os.environ, **(env or {})})
+    if p.returncode:
+        raise AssertionError(f"train CLI {args}: rc {p.returncode}\n"
+                             f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+    with open(os.path.join(out_dir, "log.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _close(got: dict, want: dict, what: str) -> float:
+    """Max relative error of got's metrics against want's; raises past
+    DP_METRIC_TOL."""
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: metrics {sorted(got)} vs "
+                             f"{sorted(want)}")
+    worst = 0.0
+    for kk, v in want.items():
+        if not abs(got[kk] - v) <= DP_METRIC_TOL["atol"] \
+                + DP_METRIC_TOL["rtol"] * abs(v):
+            raise AssertionError(f"{what}: {kk} {got[kk]} vs {v}")
+        worst = max(worst, abs(got[kk] - v) / max(abs(v), 1e-12))
+    return worst
+
+
+def _data_parallel(overrides, pool, lengths, rh, rw, plans, rates, smi,
+                   tmp):
+    """Phase 13 on the mug config with `overrides`; returns the per-rank
+    layout's numbers, the launches of the two gloo ranks' calls and the
+    steps/s measured."""
+    import contextlib
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from mocogan_tpu_torch import get_config
+    from mocogan_tpu_torch.train import state as tstate
+    from mocogan_tpu_torch.train import step as tstep
+    from mocogan_tpu_torch.utils.platform import cudnn_deterministic
+
+    cfg = get_config("mug", **overrides)
+    m, b, k = cfg.model, cfg.train.batch_size, cfg.train.steps_per_call
+    dev = pool.device
+    h, s = pool.shape[2], m.image_size
+    # rank 0's rows of each plan: the layout each rank's launch sees
+    half = [(sel[:b // 2].contiguous(), ix[:b // 2].contiguous())
+            for sel, ix in plans]
+    lay = _layout(pool, half, rh, rw, s, rates,
+                  f"per-rank mug layout (B {b // 2} of {b}, T "
+                  f"{m.video_length}, {h} -> {s} px)")
+
+    # two ranks on card 0 over gloo against one process, deterministic
+    world = 2
+    t0 = time.perf_counter()
+    ranks = mp.spawn(_dp_rank, args=(
+        world, "file://" + os.path.join(tmp, "dp_store"), overrides, tmp,
+        str(dev)), nprocs=world, join=False)
+    while not ranks.join(timeout=5):       # raises if a rank failed
+        if time.perf_counter() - t0 > DP_TIMEOUT_S:
+            for p in ranks.processes:
+                p.kill()
+            raise TimeoutError(f"the gloo ranks ran past {DP_TIMEOUT_S} s")
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=True)
+             for r in range(world)]
+    with cudnn_deterministic():
+        ref = _dp_call(cfg, None, dev, pool, lengths, rh, rw)
+    for r, res in enumerate(ranks):
+        if res["steps"] != k or res["launches"] != k:
+            raise AssertionError(f"rank {r}: {res['steps']} steps, "
+                                 f"{res['launches']} kernel launches")
+    # step 0, from compute_grads and as the first step of the run
+    err0 = max(_close(m0, ref["metrics0"], f"rank {r} step 0")
+               for r, res in enumerate(ranks)
+               for m0 in (res["metrics0"], res["metrics"][0]))
+    # later steps: Adam's first update is lr * sign(g), so a gradient
+    # element inside the fp32 noise of the two reduction orders may move
+    # either way, and the trajectories part; they are not held to the
+    # step-0 tolerance (tests/test_parallel.py says the same of JAX's).
+    # The one process on its batches in reverse order parts from itself
+    # the same way: the control printed beside the ranks' drift.
+    with cudnn_deterministic():
+        control = _steps(cfg, None, dev, pool, lengths, rh, rw,
+                         reverse=True)[0]
+
+    def drift_of(runs):
+        return [max(abs(mm[i][kk] - v) / max(abs(v), 1e-12)
+                    for mm in runs for kk, v in ref["metrics"][i].items())
+                for i in range(k)]
+
+    drift = drift_of([res["metrics"] for res in ranks])
+    drift_control = drift_of([control])
+    if not all(math.isfinite(v) for res in ranks for mm in res["metrics"]
+               for v in mm.values()):
+        raise AssertionError("non-finite metrics on a rank")
+    # at full width the step-0 gradients of some leaves (G's, the Ds'
+    # first convs) are ill-conditioned in fp32: one process summing its
+    # own batch in reverse order moves them by more than DP_GRAD_TOL of
+    # their max. That floor, measured here, bounds the ranks' error too.
+    with cudnn_deterministic():
+        rev = _step0(cfg, None, dev, pool, lengths, rh, rw, reverse=True)[0]
+
+    def grad_err(grads):
+        return max(_max_err(grads[name], want)
+                   / max(float(want.abs().max()), 1e-3)
+                   for name, want in ref["grads"].items())
+
+    floor = grad_err(rev)
+    grad_tol = max(DP_GRAD_TOL, DP_FLOOR_FACTOR * floor)
+    dp_err = max(grad_err(res["grads"]) for res in ranks)
+    bn_err = max(_max_err(res["bn0"][kk], v) for res in ranks
+                 for kk, v in ref["bn0"].items())
+    if not (dp_err <= grad_tol and bn_err <= DP_BN_TOL):
+        raise AssertionError(f"data parallel vs one process: gradients "
+                             f"{dp_err:.2e} of the max (tol {grad_tol:.2e}),"
+                             f" BN {bn_err:.2e}")
+    unequal = [kk for kk, v in ranks[0]["params"].items()
+               if not torch.equal(v, ranks[1]["params"][kk])]
+    if unequal:
+        raise AssertionError(f"params differ across ranks: {unequal[:5]}")
+    sps_gloo = [k / res["seconds"] for res in ranks]
+    print(f"[data-parallel] {smi}: 2 ranks on card 0 over gloo (global "
+          f"batch {b}, {b // 2} a rank, cudnn.deterministic) vs one process "
+          f"on the global batch: step 0 metrics max rel err {err0:.2e}, "
+          f"gradients {dp_err:.2e} of each leaf's max (tol {grad_tol:.2e}:"
+          f" the larger of {DP_GRAD_TOL} and {DP_FLOOR_FACTOR} x the "
+          f"{floor:.2e} between the one process's batch in order and "
+          f"reversed), BN stats {bn_err:.2e} (tol {DP_BN_TOL}); "
+          f"metrics' max rel difference from the one process at steps 0.."
+          f"{k - 1}: {', '.join(f'{x:.1e}' for x in drift)} (the one "
+          f"process on its batches reversed, the control: "
+          f"{', '.join(f'{x:.1e}' for x in drift_control)}); "
+          f"params bit-equal across the ranks; kernel launches "
+          f"{ranks[0]['launches']} + {ranks[1]['launches']} = 2 x {k} steps;"
+          f" {k} steps, warm-up included: "
+          f"{', '.join(f'{x:.3f}' for x in sps_gloo)} steps/s a rank "
+          f"({k / ref['seconds']:.3f} for the one process); the spawned "
+          f"ranks took {spawn_s:.1f} s")
+    launches = sum(res["launches"] for res in ranks)
+    del ranks, ref
+
+    # cudnn.deterministic on and off: alternating warm calls of k steps
+    st = tstate.create(cfg, device=dev)
+    tstep.cached_multi_train_step(st, pool, lengths, k, rh, rw)
+    det = {True: [], False: []}
+    for on in (True, False, False, True):
+        with cudnn_deterministic() if on else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            mm = tstep.cached_multi_train_step(st, pool, lengths, k, rh, rw)
+            torch.stack(list(mm.values())).tolist()
+            det[on].append(k / (time.perf_counter() - t0))
+    del st
+    print(f"[data-parallel] {smi}: mug fp32 device-cached, one process, "
+          f"steps/s with cudnn.deterministic on "
+          f"{', '.join(f'{x:.3f}' for x in det[True])}, off "
+          f"{', '.join(f'{x:.3f}' for x in det[False])} (calls on, off, "
+          f"off, on; {k} steps each)")
+
+    # a one-rank NCCL world through the train CLI, as torchrun starts it
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(_free_port())}
+    recs = _train_cli(["--config", "mug", "--data-dir", cfg.data.data_dir,
+                       "--total-steps", str(k), "--set",
+                       f"train.log_every={k}", "train.sample_every=0"],
+                      os.path.join(tmp, "run_nccl1"), env)
+    _check_losses(recs)
+    if [r["step"] for r in recs] != [k]:
+        raise AssertionError(f"one-rank NCCL run logged {recs}")
+    print(f"[data-parallel] {smi}: one-rank NCCL world (torchrun's "
+          f"environment) through the train CLI: {k} steps, "
+          f"{recs[-1]['steps_per_sec']} steps/s (one call, warm-up "
+          f"included), losses finite")
+
+    out = {"layout": lay, "launches": launches,
+           "gloo_steps_per_s": sps_gloo, "metrics_drift": drift,
+           "metrics_drift_control": drift_control,
+           "grad_err": dp_err, "grad_floor": floor,
+           "deterministic_steps_per_s": det[True],
+           "default_steps_per_s": det[False]}
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"[data-parallel] {smi}: {n_cards} card visible: two NCCL "
+              f"ranks on two cards not run")
+        return out
+    recs = _train_cli(["--config", "mug", "--data-dir", cfg.data.data_dir,
+                       "--num-devices", "2", "--total-steps", str(4 * k),
+                       "--set", f"train.log_every={k}",
+                       "train.sample_every=0"],
+                      os.path.join(tmp, "run_nccl2"))
+    _check_losses(recs)
+    warm = [r for r in recs if "steps_per_sec" in r][1:]
+    sps = len(warm) * k / sum(k / r["steps_per_sec"] for r in warm)
+    out["nccl2_steps_per_s"] = sps
+    print(f"[data-parallel] {smi} (x {n_cards}): two NCCL ranks on two "
+          f"cards through the train CLI, global batch {b}: {sps:.3f} "
+          f"steps/s, {sps * b:.1f} clips/s after the first call")
+    return out
 
 
 def main() -> int:
@@ -646,11 +984,13 @@ def main() -> int:
                     for r in reps) and reps[1]["record_matches"]):
             raise AssertionError(f"parity: {reps}")
         g_r = trainer_r.state.nets["gen"]
-        free = [generator.generate(g_r, 4, seed=0) for _ in range(2)]
+        twice = [generator.generate(g_r, 4, seed=0) for _ in range(2)]
+        if not torch.equal(*twice):
+            raise AssertionError("two generate() calls differ")
         print(f"[parity] deterministic: true twice, record matches "
-              f"({reps[1]['digest'][:12]}); without cudnn.deterministic, "
-              f"two generate() calls bit-equal: "
-              f"{bool(torch.equal(*free))}")
+              f"({reps[1]['digest'][:12]}); two generate() calls outside "
+              f"the parity CLI bit-equal (generate runs under "
+              f"cudnn.deterministic)")
 
         # ---- 8. generate ---------------------------------------------------------
         vids = generator.generate(g, 16, seed=1)
@@ -810,7 +1150,11 @@ def main() -> int:
               f"memory ({v_sc_nr['peak_gb']:.2f} against "
               f"{v_sc['peak_gb']:.2f} GB)")
 
-    # ---- 13. result --------------------------------------------------------
+        # ---- 13. data parallel -------------------------------------------
+        dp = _data_parallel({"data.data_dir": cfg.data.data_dir}, pool,
+                            lengths, rh, rw, plans, rates, smi, tmp)
+
+    # ---- 14. result --------------------------------------------------------
     variants = {"categorical_cached": v_cat, "categorical_host_fed": v_cat_hf,
                 "sequential": v_seq, "bf16": v_bf, "scaled": v_sc,
                 "scaled_no_remat": v_sc_nr}
@@ -818,6 +1162,7 @@ def main() -> int:
     by_path = {"device_cached": launches_dc - ev_dc,
                "host_fed": launches_hf - ev_hf,
                **{kk: v["launches"] for kk, v in variants.items()},
+               "data_parallel": dp["launches"],
                "eval_pool": ev_dc + ev_hf + ev_r + ev_cli + sum(
                    v["eval_pool"] for v in variants.values())}
     print(json.dumps({"kernels": [{
@@ -826,7 +1171,7 @@ def main() -> int:
         "replaces": "mocogan_tpu/ops/preproc.py:90",
         "launches": sum(by_path.values()), "launches_by_path": by_path,
         "max_abs_err": max(lay_mug["max_abs_err"], lay_sc["max_abs_err"],
-                           err_hf, err_ev),
+                           dp["layout"]["max_abs_err"], err_hf, err_ev),
         "ms": lay_mug["ms"], "plain_ms": lay_mug["plain_ms"],
         "bound_ms": lay_mug["bound_ms"], "bound_by": lay_mug["bound_by"],
         "bound_frac": (None if lay_mug["bound_ms"] is None
@@ -834,8 +1179,9 @@ def main() -> int:
         "library_ms": lay_mug["library_ms"], "eval_pool_ms": eval_ms,
         "eval_pool_plain_ms": eval_plain_ms,
         "eval_pool_bound_ms": eval_bound_ms,
-        "scaled_layout": lay_sc}]}))
-    print(json.dumps({"variants": variants}))
+        "scaled_layout": lay_sc, "per_rank_layout": dp["layout"]}]}))
+    print(json.dumps({"variants": variants, "data_parallel": {
+        kk: v for kk, v in dp.items() if kk not in ("layout", "launches")}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

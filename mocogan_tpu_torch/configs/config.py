@@ -85,7 +85,14 @@ class TrainConfig:
     eval_every: int = 0
     eval_clips: int = 256
 
+    # Data parallelism, one process per GPU (parallel/mesh.py): None means
+    # the world's size (torchrun's, or every visible GPU for the train
+    # CLI, which spawns that many workers); any other value must equal it.
+    # The global batch_size is split evenly over the devices.
     num_devices: Optional[int] = None
+    # Nodes of a multi-node world (the JAX package's DCN slices): the world
+    # must divide into them and, under torchrun, match its nodes, each of
+    # the same size. The batch is split slice-major, which is rank order.
     n_slices: int = 1
 
     # Adversarial steps per trainer call.

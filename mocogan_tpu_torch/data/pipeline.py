@@ -6,7 +6,9 @@ host work (the native clip store's memcpy, numpy copies, both of which
 release the interpreter lock) overlaps the device's work. ``HostFeed``
 runs the stacking of k batches into pinned memory on that thread, so the
 main thread only starts each stack's copy to the device, on a copy stream
-of its own that overlaps the compute stream.
+of its own that overlaps the compute stream. Under data parallelism the
+iterator yields the global batches on every rank, and the thread slices
+each stack to the rank's rows before pinning it.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from typing import Any, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+
+from mocogan_tpu_torch.parallel import mesh as pmesh
 
 
 class ThreadedPrefetcher:
@@ -86,13 +90,26 @@ class ThreadedPrefetcher:
         self._thread.join(timeout=2.0)
 
 
-def _stacks(it: Iterator[Any], k: int, pin: bool
-            ) -> Iterator[Tuple[torch.Tensor, Optional[torch.Tensor],
-                                Optional[torch.Tensor]]]:
-    """(batches (K, B, ...), frame_idx (K, B, T) or None, labels (K, B) or
-    None) host tensors of k batches each, in pinned memory where `pin`; a
-    fresh tensor per stack. Labels are stacked when every batch has them.
-    Stops when fewer than k batches are left."""
+Stack = Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]
+
+
+def _pinned(t: torch.Tensor, pin: bool) -> torch.Tensor:
+    buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+    buf.copy_(t)
+    return buf
+
+
+def _stacks(it: Iterator[Any], k: int, pin: bool,
+            mesh: Optional[pmesh.Mesh] = None
+            ) -> Iterator[Tuple[Stack, Optional[Stack]]]:
+    """(stack, global stack) pairs. A stack is (batches (K, B, ...),
+    frame_idx (K, B, T) or None, labels (K, B) or None) host tensors of k
+    batches each, in pinned memory where `pin`; a fresh tensor per stack.
+    Labels are stacked when every batch has them. Stops when fewer than k
+    batches are left. With a mesh of several ranks the stack holds the
+    rank's rows of each batch and the global stack (unpinned) all of them;
+    otherwise the global stack is None."""
+    split = mesh is not None and mesh.world_size > 1
     while True:
         items = list(itertools.islice(it, k))
         if len(items) < k:
@@ -106,19 +123,25 @@ def _stacks(it: Iterator[Any], k: int, pin: bool
             labels = [b[1] for b in items]
         parts.append(None if any(lab is None for lab in labels) else
                      [np.asarray(lab, np.int32) for lab in labels])
-        out = []
+        out, whole = [], []
         for arrays in parts:
             if arrays is None:
                 out.append(None)
-                continue
-            buf = torch.empty((k, *arrays[0].shape), pin_memory=pin,
-                              dtype=torch.from_numpy(
-                                  np.empty(0, arrays[0].dtype)).dtype)
-            host = buf.numpy()
-            for j, a in enumerate(arrays):
-                host[j] = a
-            out.append(buf)
-        yield tuple(out)
+                whole.append(None)
+            elif split:
+                full = torch.from_numpy(np.stack(arrays))
+                whole.append(full)
+                out.append(_pinned(pmesh.local_batch_slice(mesh, full,
+                                                           axis=1), pin))
+            else:
+                buf = torch.empty((k, *arrays[0].shape), pin_memory=pin,
+                                  dtype=torch.from_numpy(
+                                      np.empty(0, arrays[0].dtype)).dtype)
+                host = buf.numpy()
+                for j, a in enumerate(arrays):
+                    host[j] = a
+                out.append(buf)
+        yield tuple(out), (tuple(whole) if split else None)
 
 
 class HostFeed:
@@ -137,24 +160,30 @@ class HostFeed:
     its copy is queued; PyTorch's pinned-memory allocator recorded an event
     on that copy and does not hand the block out again before the event
     has passed, so a buffer is never rewritten while its copy is in
-    flight. On the CPU the host stack is the batch itself."""
+    flight. On the CPU the host stack is the batch itself.
+
+    With a data-parallel `mesh` of several ranks the iterator yields the
+    global batches and ``next()`` returns the rank's rows of them;
+    ``last_global`` then holds the global host stack of the last ``next()``
+    (None otherwise), for an eval pool that needs every rank's clips."""
 
     def __init__(self, data_iterator: Iterator[Any], k: int,
-                 device: torch.device, depth: int):
+                 device: torch.device, depth: int,
+                 mesh: Optional[pmesh.Mesh] = None):
         self.device = device
         cuda = device.type == "cuda"
-        self._it = ThreadedPrefetcher(_stacks(iter(data_iterator), k, cuda),
-                                      depth=depth)
+        self._it = ThreadedPrefetcher(
+            _stacks(iter(data_iterator), k, cuda, mesh), depth=depth)
         self._stream = torch.cuda.Stream(device) if cuda else None
+        self.last_global: Optional[Stack] = None
 
     @property
     def wait_s(self) -> float:
         """Seconds spent waiting for the prefetch thread."""
         return self._it.wait_s
 
-    def next(self) -> Tuple[torch.Tensor, Optional[torch.Tensor],
-                            Optional[torch.Tensor]]:
-        host = next(self._it)
+    def next(self) -> Stack:
+        host, self.last_global = next(self._it)
         if self._stream is None:
             return host
         compute = torch.cuda.current_stream(self.device)

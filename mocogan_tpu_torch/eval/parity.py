@@ -10,8 +10,9 @@
 
 cuDNN's default algorithm for the deconvs' forward pass (a data gradient)
 is not deterministic on an H100: two ``generate()`` calls there differed
-without the flag. So the check runs with ``cudnn.deterministic`` on and
-``cudnn.benchmark`` off, restoring both after.
+without the flag. ``generate()`` itself now runs with
+``cudnn.deterministic`` on and ``cudnn.benchmark`` off
+(``utils.platform.cudnn_deterministic``), and the check does too.
 
 Run:  python -m mocogan_tpu_torch.eval.parity --config toy \\
           [--run-dir runs/toy] [--n 4] [--seed 0] [--record P] [--device cpu]
@@ -20,13 +21,14 @@ Run:  python -m mocogan_tpu_torch.eval.parity --config toy \\
 from __future__ import annotations
 
 import argparse
-import contextlib
 import hashlib
 import json
 import os
 
 import numpy as np
 import torch
+
+from mocogan_tpu_torch.utils.platform import cudnn_deterministic
 
 
 def video_digest(videos) -> str:
@@ -35,19 +37,6 @@ def video_digest(videos) -> str:
         videos = videos.detach().cpu().numpy()
     v = np.ascontiguousarray(np.asarray(videos, dtype=np.float32))
     return hashlib.sha256(v.tobytes()).hexdigest()
-
-
-@contextlib.contextmanager
-def cudnn_deterministic():
-    """``cudnn.deterministic = True`` and ``cudnn.benchmark = False`` for
-    the block; the previous values after it."""
-    cudnn = torch.backends.cudnn
-    old = cudnn.deterministic, cudnn.benchmark
-    cudnn.deterministic, cudnn.benchmark = True, False
-    try:
-        yield
-    finally:
-        cudnn.deterministic, cudnn.benchmark = old
 
 
 def check_determinism(g, *, n: int = 4, seed: int = 0) -> dict:

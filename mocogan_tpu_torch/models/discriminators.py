@@ -21,6 +21,7 @@ from torch import nn
 
 from mocogan_tpu_torch.configs import ModelConfig
 from mocogan_tpu_torch.ops import layers
+from mocogan_tpu_torch.parallel.mesh import Mesh
 
 _N_DOWN = 4
 
@@ -56,11 +57,11 @@ class _Discriminator(nn.Module):
             cin = cout
         self.fc = layers.Dense(flat, 1, gen)
 
-    def _trunk(self, h, strides, train, update):
+    def _trunk(self, h, strides, train, update, mesh):
         for i in range(_N_DOWN):
             h = getattr(self, f"conv{i}")(h, strides[i], self.dtype)
             if i > 0:
-                h = getattr(self, f"bn{i}")(h, train, update)
+                h = getattr(self, f"bn{i}")(h, train, update, mesh)
             h = layers.leaky_relu(h)
         # channels-last flatten
         return h.permute(0, *range(2, h.ndim), 1).reshape(h.shape[0], -1)
@@ -73,9 +74,11 @@ class ImageDiscriminator(_Discriminator):
                          s_out * s_out * _disc_widths(cfg.disc_features)[-1],
                          gen)
 
-    def forward(self, x: torch.Tensor, train: bool, update: bool = True):
-        """x (N, C, H, W) -> logits (N, 1)."""
-        h = self._trunk(x, [2] * _N_DOWN, train, update)
+    def forward(self, x: torch.Tensor, train: bool, update: bool = True,
+                mesh: Optional[Mesh] = None):
+        """x (N, C, H, W) -> logits (N, 1). `mesh`: BN statistics over its
+        ranks (``layers.batchnorm``)."""
+        h = self._trunk(x, [2] * _N_DOWN, train, update, mesh)
         return self.fc(h, self.dtype)
 
 
@@ -86,12 +89,13 @@ class VideoDiscriminator(_Discriminator):
         if cfg.conditional:
             self.fc_cls = layers.Dense(flat, cfg.n_classes, gen)
 
-    def forward(self, x: torch.Tensor, train: bool, update: bool = True
+    def forward(self, x: torch.Tensor, train: bool, update: bool = True,
+                mesh: Optional[Mesh] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """x (B, C, T, H, W) -> (logits (B, 1), class logits (B, K) or
-        None)."""
+        None). `mesh`: as ``ImageDiscriminator.forward``."""
         strides = [_video_strides(i) for i in range(_N_DOWN)]
-        h = self._trunk(x, strides, train, update)
+        h = self._trunk(x, strides, train, update, mesh)
         cls = (self.fc_cls(h, self.dtype) if hasattr(self, "fc_cls")
                else None)
         return self.fc(h, self.dtype), cls

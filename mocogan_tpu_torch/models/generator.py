@@ -31,8 +31,9 @@ from torch.utils.checkpoint import checkpoint
 from mocogan_tpu_torch.configs import ModelConfig
 from mocogan_tpu_torch.models import motion
 from mocogan_tpu_torch.ops import layers
+from mocogan_tpu_torch.parallel.mesh import Mesh
 from mocogan_tpu_torch.utils import prng
-from mocogan_tpu_torch.utils.platform import upload
+from mocogan_tpu_torch.utils.platform import cudnn_deterministic, upload
 
 _N_UP = 4  # stride-2 upsampling stages: seed -> x16 spatial
 
@@ -67,14 +68,15 @@ class Generator(nn.Module):
                                for i in range(_N_UP - 1)]
 
     def _decode(self, z: torch.Tensor, train: bool, update: bool,
-                stats: Optional[list] = None) -> torch.Tensor:
+                stats: Optional[list] = None,
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
         """The decoder. With `stats`, train mode appends each BN's batch
         (mean, var) there instead of advancing its running stats."""
         bns = iter(self._bns())
 
         def bn_relu(h):
             bn = next(bns)
-            y, mean, var = bn.normalize(h, train)
+            y, mean, var = bn.normalize(h, train, mesh)
             if stats is not None:
                 stats.extend((mean, var))
             elif train and update:
@@ -93,20 +95,23 @@ class Generator(nn.Module):
         # dtype anyway; inference keeps fp32
         return out.to(dt) if train else out
 
-    def _decode_remat(self, z: torch.Tensor):
+    def _decode_remat(self, z: torch.Tensor, mesh: Optional[Mesh]):
         stats: list = []
-        return (self._decode(z, True, False, stats), *stats)
+        return (self._decode(z, True, False, stats, mesh), *stats)
 
-    def decode(self, z: torch.Tensor, train: bool, update: bool = True
-               ) -> torch.Tensor:
+    def decode(self, z: torch.Tensor, train: bool, update: bool = True,
+               mesh: Optional[Mesh] = None) -> torch.Tensor:
         """z (N, dim_z) -> frames (N, C, H, W) in [-1, 1]. Under
         ``model.remat`` train mode keeps no activations of the decoder for
         the backward pass, which runs it again; the recompute must not
         advance the running stats a second time, so the batch stats of the
-        first run come out of the checkpoint and advance them here."""
+        first run come out of the checkpoint and advance them here. With a
+        data-parallel `mesh` the recompute repeats the BN all-reduces, in
+        the same order on every rank."""
         if not (train and self.cfg.remat):
-            return self._decode(z, train, update)
-        out, *stats = checkpoint(self._decode_remat, z, use_reentrant=False)
+            return self._decode(z, train, update, mesh=mesh)
+        out, *stats = checkpoint(self._decode_remat, z, mesh,
+                                 use_reentrant=False)
         if update:
             for bn, mean, var in zip(self._bns(), stats[0::2], stats[1::2]):
                 bn.advance(mean, var)
@@ -114,9 +119,11 @@ class Generator(nn.Module):
 
     def sample(self, z_c: torch.Tensor, h0: torch.Tensor, eps: torch.Tensor,
                train: bool, update: bool = True,
-               labels: Optional[torch.Tensor] = None) -> torch.Tensor:
+               labels: Optional[torch.Tensor] = None,
+               mesh: Optional[Mesh] = None) -> torch.Tensor:
         """Fake clips (B, T, C, H, W) from z_c (B, d_c), h0 (B, d_m), eps
-        (T, B, d_eps) and, for the categorical model, labels (B,)."""
+        (T, B, d_eps) and, for the categorical model, labels (B,). `mesh`:
+        BN statistics over its ranks (``layers.batchnorm``)."""
         b, t = z_c.shape[0], eps.shape[0]
         z_m = motion.sample_motion(self.gru, h0, eps)              # (B,T,dM)
         parts = [z_c[:, None, :].expand(b, t, -1)]
@@ -127,7 +134,7 @@ class Generator(nn.Module):
             parts.append(onehot[:, None, :].expand(b, t, -1))
         parts.append(z_m)
         z = torch.cat(parts, dim=-1)
-        frames = self.decode(z.reshape(b * t, -1), train, update)
+        frames = self.decode(z.reshape(b * t, -1), train, update, mesh)
         return frames.view(b, t, *frames.shape[1:])
 
 
@@ -185,7 +192,10 @@ def generate(g: Generator, n: int, *, seed: int = 0,
     The noise is drawn on the host, so (weights, seed) give the same clips
     on the card and on the CPU up to fp32 rounding; ``latents`` (as from
     ``draw_latents``) overrides the draws, and `labels` (n,) the class
-    draws of the categorical model. T is `video_length` or the config's."""
+    draws of the categorical model. T is `video_length` or the config's.
+    cuDNN runs deterministic algorithms for the call
+    (``cudnn_deterministic``): its default deconv algorithm is not, and two
+    calls on an H100 would differ in the last bits."""
     if latents is None:
         dev = next(g.parameters()).device
         latents = draw_latents(g.cfg, n, seed, 0, dev, video_length)
@@ -200,8 +210,10 @@ def generate(g: Generator, n: int, *, seed: int = 0,
                 < g.cfg.n_classes:
             raise ValueError(f"labels must lie in [0, {g.cfg.n_classes})")
         latents = {**latents, "labels": labels.to(latents["z_c"].device)}
-    return sample_videos(g, latents["z_c"], latents["h0"], latents["eps"],
-                         train=False, labels=latents.get("labels"))
+    with cudnn_deterministic():
+        return sample_videos(g, latents["z_c"], latents["h0"],
+                             latents["eps"], train=False,
+                             labels=latents.get("labels"))
 
 
 def _chunks(g: Generator, n: int, seed: int, chunk: int,

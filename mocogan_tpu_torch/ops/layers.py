@@ -35,6 +35,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mocogan_tpu_torch.parallel.mesh import Mesh, all_reduce_mean
+
 _W_STD = 0.02
 BN_MOMENTUM = 0.9
 BN_EPS = 2e-5
@@ -126,17 +128,24 @@ def deconv2d(x: torch.Tensor, w: torch.Tensor,
 
 def batchnorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
               running_mean: torch.Tensor, running_var: torch.Tensor, *,
-              train: bool, eps: float = BN_EPS):
+              train: bool, eps: float = BN_EPS, mesh: Optional[Mesh] = None):
     """Normalize over all axes but dim 1 (channels).
 
     Statistics are fp32; the affine runs in x's dtype, so a bf16 x gives a
     bf16 y. Returns (y, batch_mean, batch_var); the batch stats are None in
-    eval mode, which normalizes with the running stats."""
+    eval mode, which normalizes with the running stats. With a data-parallel
+    `mesh`, train mode averages the mean and E[x^2] over the ranks (one
+    differentiable all-reduce) before taking the variance, so each rank
+    normalizes with the global batch's statistics."""
     if train:
         red = [0] + list(range(2, x.ndim))
         xf = x.float()
         mean = xf.mean(red)
-        var = (xf * xf).mean(red) - mean * mean
+        msq = (xf * xf).mean(red)
+        if mesh is not None and mesh.collective:
+            mean, msq = all_reduce_mean(torch.stack([mean, msq]),
+                                        mesh).unbind(0)
+        var = msq - mean * mean
     else:
         mean, var = running_mean, running_var
     inv = torch.rsqrt(var + eps) * scale
@@ -263,9 +272,9 @@ class Conv3d(_Layer):
 class BatchNorm(_Layer):
     """Hand-written BN; running stats are buffers ``mean`` and ``var``.
 
-    ``forward(x, train, update)``: in train mode the batch stats normalize
-    and, when ``update`` is set, advance the running stats in place
-    (``advance``)."""
+    ``forward(x, train, update, mesh)``: in train mode the batch stats (over
+    the ranks of `mesh`) normalize and, when ``update`` is set, advance the
+    running stats in place (``advance``)."""
 
     def __init__(self, c: int):
         super().__init__()
@@ -274,11 +283,11 @@ class BatchNorm(_Layer):
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
 
-    def normalize(self, x, train: bool):
+    def normalize(self, x, train: bool, mesh: Optional[Mesh] = None):
         """(y, batch mean, batch var), the stats None in eval mode; the
-        running stats are left as they are."""
+        running stats are left as they are. `mesh`: see ``batchnorm``."""
         return batchnorm(x, self.scale, self.bias, self.mean, self.var,
-                         train=train)
+                         train=train, mesh=mesh)
 
     @torch.no_grad()
     def advance(self, mean: torch.Tensor, var: torch.Tensor) -> None:
@@ -287,8 +296,9 @@ class BatchNorm(_Layer):
         self.mean.copy_(m * self.mean + (1.0 - m) * mean)
         self.var.copy_(m * self.var + (1.0 - m) * var)
 
-    def forward(self, x, train: bool, update: bool = True):
-        y, mean, var = self.normalize(x, train)
+    def forward(self, x, train: bool, update: bool = True,
+                mesh: Optional[Mesh] = None):
+        y, mean, var = self.normalize(x, train, mesh)
         if train and update:
             self.advance(mean, var)
         return y

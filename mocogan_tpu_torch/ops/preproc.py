@@ -9,6 +9,10 @@ weights as 2-tap tables (``resize_taps``); on the CPU it is the plain
 PyTorch version beside it, which is also what the card's kernel is held
 against. A CUDA tensor goes through the kernel or raises: there is no
 fallback.
+
+Under data parallelism each rank launches the kernel on its own rows of
+the global batch plan (``train.step.shard_draws``), the counterpart of the
+JAX package's ``resize_normalize_sharded``: no collective is involved.
 """
 
 from __future__ import annotations

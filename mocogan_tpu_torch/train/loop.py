@@ -21,7 +21,13 @@ Every ``train.eval_every`` steps the quality panel (``eval/panel.py``) runs
 on up to ``train.eval_clips`` real clips, which each mode makes with the
 ingest kernel: device-cached, one launch over fixed windows of the resident
 store (the JAX package's numpy draws, made once per run); host-fed, one
-launch over the clips of the recent uploaded stacks.
+launch over the clips of the recent global batches.
+
+Data parallelism (``train.num_devices`` > 1, one process per GPU under
+``torchrun`` or the train CLI's own workers): every rank trains on its rows
+of each global batch (``parallel/mesh.py``), and rank 0 alone writes the
+log, the checkpoints and the sample grids and runs the panel, on the same
+eval pool as one device would; a barrier follows each of these.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from mocogan_tpu_torch.data import clips
 from mocogan_tpu_torch.data.pipeline import HostFeed
 from mocogan_tpu_torch.models import generator
 from mocogan_tpu_torch.ops import preproc
+from mocogan_tpu_torch.parallel import mesh as pmesh
 from mocogan_tpu_torch.train import state as train_state
 from mocogan_tpu_torch.train import step as train_step_mod
 from mocogan_tpu_torch.utils import video as video_utils
@@ -94,16 +101,25 @@ class Trainer:
     """Drives training for one ExperimentConfig on `device` (default
     ``cuda``; ``device="cpu"`` runs the plain ingest on the CPU). With
     `resume`, the latest checkpoint in ``<out_dir>/checkpoints`` is
-    restored."""
+    restored.
+
+    The data-parallel world comes from ``torch.distributed``: the process
+    group the environment describes is joined here (``torchrun``), or the
+    caller has joined one. ``train.num_devices`` None means its size, any
+    other value must equal it (one process per device), and
+    ``train.n_slices`` must fit it (``parallel.mesh.make_mesh``). Under
+    ``cuda`` each rank takes ``cuda:<local rank>``; a device with an index
+    (``cuda:0``) is taken as it is."""
 
     def __init__(self, cfg: ExperimentConfig, out_dir: Optional[str] = None,
                  resume: bool = True, device=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
-        if (cfg.train.num_devices or 1) > 1:
-            raise NotImplementedError(
-                f"train.num_devices={cfg.train.num_devices}: multi-GPU "
-                f"training is not ported yet (ROADMAP A11)")
+        device = resolve_device(device)
+        pmesh.initialize_distributed(device)
+        self.mesh = pmesh.make_mesh(cfg.train.num_devices,
+                                    cfg.train.n_slices, device)
+        pmesh.local_batch_size(cfg, self.mesh)      # raises if B % n
+        self.device = self.mesh.device
         self.out_dir = out_dir or os.path.join(cfg.out_dir, cfg.name)
         os.makedirs(self.out_dir, exist_ok=True)
         self.logger = MetricLogger(self.out_dir)
@@ -112,11 +128,14 @@ class Trainer:
         self.ckpt = CheckpointManager(
             os.path.join(self.out_dir, "checkpoints"),
             max_to_keep=cfg.train.keep_checkpoints,
-            stream_meta={"epoch_shuffle": cfg.data.epoch_shuffle})
-        self.state = train_state.create(cfg, device=self.device)
+            stream_meta={"epoch_shuffle": cfg.data.epoch_shuffle},
+            mesh=self.mesh)
+        self.state = train_state.create(cfg, device=self.device,
+                                        mesh=self.mesh)
         if resume and self.ckpt.latest_step() is not None:
             self.ckpt.restore(self.state)
-            print(f"[trainer] resumed from step {self.state.step}")
+            train_state.check_replicated(self.state, self.mesh)
+            self._say(f"[trainer] resumed from step {self.state.step}")
         self._hooks: list = []
         self._panel = None       # eval.panel.PanelRunner, built on first use
         self._fvd_warned = False
@@ -127,8 +146,13 @@ class Trainer:
 
     def add_hook(self, every: int,
                  fn: Callable[["Trainer", int], Any]) -> None:
-        """Call fn(trainer, step) on the host every `every` steps."""
+        """Call fn(trainer, step) on the host every `every` steps (on every
+        rank)."""
         self._hooks.append((int(every), fn))
+
+    def _say(self, msg: str) -> None:
+        if self.mesh.is_main:
+            print(msg)
 
     def save_samples(self, step: int, n: int = 16) -> str:
         """A grid of n clips from the fixed seed train.seed + 1_000_000, at
@@ -190,13 +214,13 @@ class Trainer:
         total = total_steps or t.total_steps
         start = self.state.step
         if start >= total:
-            print(f"[trainer] nothing to do: resumed step {start} >= "
-                  f"total {total}")
+            self._say(f"[trainer] nothing to do: resumed step {start} >= "
+                      f"total {total}")
             return None
         if (total - start) % k:
             total = start + -(-(total - start) // k) * k
-            print(f"[trainer] rounding total up to {total} "
-                  f"(steps_per_call={k})")
+            self._say(f"[trainer] rounding total up to {total} "
+                      f"(steps_per_call={k})")
         return start, total
 
     def _run_loop(self, start: int, total: int, k: int,
@@ -207,8 +231,10 @@ class Trainer:
         checkpoint, hooks, in that order. dispatch(step) advances the state
         by k steps and returns their mean metrics (0-dim device tensors),
         re-weighted by k here; eval_pool_fn() returns the panel's real
-        clips. Ends with a checkpoint, a sample grid (unless the cadence
-        just wrote one) and the loss plot."""
+        clips (called on rank 0 only). Ends with a checkpoint, a sample
+        grid (unless the cadence just wrote one) and the loss plot. Rank 0
+        alone logs, samples, runs the panel and plots; the ranks meet at a
+        barrier after each of these and at each checkpoint."""
         cfg = self.cfg
         acc: Optional[Dict[str, torch.Tensor]] = None   # on-device sums
         n_acc = 0                                       # in steps
@@ -229,18 +255,23 @@ class Trainer:
                 dt = time.time() - t_window
                 last = {key: v / n_acc for key, v in zip(acc, fetched)}
                 sps = n_acc / dt
-                self.logger.log(step, last, steps_per_sec=round(sps, 3),
-                                clips_per_sec=round(
-                                    sps * cfg.train.batch_size, 2))
-                print(f"[step {step}/{total}] "
-                      + " ".join(f"{kk}={v:.4f}" for kk, v in last.items())
-                      + f" | {sps:.2f} steps/s")
+                if self.mesh.is_main:
+                    self.logger.log(step, last, steps_per_sec=round(sps, 3),
+                                    clips_per_sec=round(
+                                        sps * cfg.train.batch_size, 2))
+                self._say(f"[step {step}/{total}] "
+                          + " ".join(f"{kk}={v:.4f}"
+                                     for kk, v in last.items())
+                          + f" | {sps:.2f} steps/s")
                 acc, n_acc, t_window = None, 0, time.time()
 
             if self._crossed(cfg.train.sample_every, prev, step):
-                self.save_samples(step)
+                if self.mesh.is_main:
+                    self.save_samples(step)
+                pmesh.barrier(self.mesh)
                 sampled = step
-            if self._crossed(cfg.train.eval_every, prev, step):
+            if self._crossed(cfg.train.eval_every, prev, step) \
+                    and self.mesh.is_main:
                 t_eval = time.time()
                 before = preproc.LAUNCHES["resize_norm"]
                 pool = eval_pool_fn()
@@ -257,6 +288,8 @@ class Trainer:
                       + " ".join(f"{kk}={vv:.3f}"
                                  for kk, vv in panel.items())
                       + f" | eval {time.time() - t_eval:.1f}s")
+            if self._crossed(cfg.train.eval_every, prev, step):
+                pmesh.barrier(self.mesh)
             if self._crossed(cfg.train.checkpoint_every, prev, step):
                 self.ckpt.save(self.state)
             for every, hook in self._hooks:
@@ -264,9 +297,11 @@ class Trainer:
                     hook(self, step)
 
         self.ckpt.save(self.state, wait=True)
-        if sampled != total:
-            self.save_samples(total)
-        self.logger.plot()
+        if self.mesh.is_main:
+            if sampled != total:
+                self.save_samples(total)
+            self.logger.plot()
+        pmesh.barrier(self.mesh)
         return last
 
     def run(self, data_iterator: Iterator[Any],
@@ -283,27 +318,36 @@ class Trainer:
             return {}
         start, total = plan
         feed = HostFeed(data_iterator, k, self.device,
-                        depth=cfg.data.prefetch)
-        current = {"batch": feed.next()}
-        # k = 1: the eval pool is the last ceil(eval_clips / B) stacks
-        # trained on (one batch of B clips would leave the Fréchet
+                        depth=cfg.data.prefetch, mesh=self.mesh)
+
+        def fetch():
+            # the rank's rows, and the global stack for the eval pool: the
+            # uploaded stack itself on one rank, the host copy otherwise
+            batch = feed.next()
+            return {"batch": batch, "global": feed.last_global or batch}
+
+        current = fetch()
+        # k = 1: the eval pool is the last ceil(eval_clips / B) global
+        # stacks trained on (one batch of B clips would leave the Fréchet
         # covariance rank-deficient); k > 1: the stack of the next call
         recent: deque = deque(maxlen=max(1, -(-cfg.train.eval_clips
                                               // cfg.train.batch_size)))
 
         def dispatch(step):
-            if k == 1 and cfg.train.eval_every:
-                recent.append(current["batch"])
-            metrics = train_step_mod.multi_train_step(self.state,
-                                                      *current["batch"])
+            if k == 1 and cfg.train.eval_every and self.mesh.is_main:
+                recent.append(current["global"])
+            metrics = train_step_mod.multi_train_step(
+                self.state, *current["batch"], mesh=self.mesh)
             # the next stack's upload overlaps this call (a copy stream)
             if step + k < total:
-                current["batch"] = feed.next()
+                current.update(fetch())
             return metrics
 
         def eval_pool_fn():
+            stacks = list(recent) if k == 1 else [current["global"]]
             return stack_eval_pool(
-                list(recent) if k == 1 else [current["batch"]],
+                [tuple(None if t is None else t.to(self.device) for t in s)
+                 for s in stacks],
                 cfg.train.eval_clips, cfg.model.image_size)
 
         try:
@@ -343,12 +387,13 @@ class Trainer:
         lengths = torch.from_numpy(lengths_np)
         rh, rw = preproc.resize_weights(pool.shape[2], pool.shape[3],
                                         cfg.model.image_size, self.device)
-        print(f"[trainer] device cache: {pool_np.nbytes / 1e6:.0f} MB, "
-              f"{len(lengths_np)} clips resident on {self.device}")
+        self._say(f"[trainer] device cache: {pool_np.nbytes / 1e6:.0f} MB, "
+                  f"{len(lengths_np)} clips resident on {self.device}")
 
         def dispatch(step):
             return train_step_mod.cached_multi_train_step(
-                self.state, pool, lengths, k, rh, rw, labels=labels)
+                self.state, pool, lengths, k, rh, rw, labels=labels,
+                mesh=self.mesh)
 
         cache: Dict[str, torch.Tensor] = {}
 

@@ -4,18 +4,21 @@ BatchNorm running stats live in the modules' buffers. Parameters are
 initialized on the CPU from the (seed, 0, "init") generator and then moved
 to the device, so a seed gives the same initial weights on any device.
 Params, BN stats and Adam moments are fp32 whatever ``model.compute_dtype``
-says; the nets cast to it where they compute.
+says; the nets cast to it where they compute. Under data parallelism every
+rank builds the same state from the seed (``create`` checks that it did).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 import torch
 from torch import nn
 
 from mocogan_tpu_torch.configs import ExperimentConfig
 from mocogan_tpu_torch.models import discriminators, generator
+from mocogan_tpu_torch.parallel import mesh as pmesh
+from mocogan_tpu_torch.parallel.mesh import Mesh
 from mocogan_tpu_torch.utils import prng
 from mocogan_tpu_torch.utils.platform import resolve_device
 
@@ -51,10 +54,28 @@ class TrainState:
                     for name, net in self.nets.items()}
 
 
+def state_tensors(state: TrainState) -> List[torch.Tensor]:
+    """Every tensor of the state, in a fixed order: seed and step, then per
+    net its params, BN buffers and Adam state."""
+    out = [torch.tensor([state.seed, state.step])]
+    for name, net in state.nets.items():
+        out += [*net.parameters(), *net.buffers()]
+        out += [v for st in state.opt[name].state.values()
+                for v in st.values() if torch.is_tensor(v)]
+    return out
+
+
+def check_replicated(state: TrainState, mesh: Optional[Mesh]) -> None:
+    """Raise on every rank unless all ranks of `mesh` hold the same state
+    bit for bit (nothing to check without a process group)."""
+    pmesh.check_replicated(state_tensors(state), mesh, "train state")
+
+
 def create(cfg: ExperimentConfig, seed: Optional[int] = None,
-           device=None) -> TrainState:
+           device=None, mesh: Optional[Mesh] = None) -> TrainState:
     """Initialize all nets and optimizers on `device` (default ``cuda``;
-    raises when no GPU is visible unless ``device="cpu"``)."""
+    raises when no GPU is visible unless ``device="cpu"``). With a
+    data-parallel `mesh`, check that every rank built the same state."""
     dev = resolve_device(device)
     m = cfg.model
     seed = cfg.train.seed if seed is None else seed
@@ -65,5 +86,7 @@ def create(cfg: ExperimentConfig, seed: Optional[int] = None,
     }
     if m.use_video_discriminator:
         nets["dv"] = discriminators.video_init(m, gen)
-    return TrainState(cfg, seed, dev, nets)
+    state = TrainState(cfg, seed, dev, nets)
+    check_replicated(state, mesh)
+    return state
 

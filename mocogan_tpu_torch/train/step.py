@@ -37,6 +37,13 @@ the stack itself as the pool.
 Every random draw is made on the host from CPU generators and copied to
 the device, so a (seed, step) draws the same noise on the card as on the
 CPU.
+
+Data parallelism (``mesh``, from ``parallel.mesh.make_mesh``): each rank
+runs these functions on its rows of the global batch. The draws are the
+global batch's, sliced to the rank's rows (``shard_draws``); BN statistics,
+gradients and metrics are averaged over the ranks, so each rank takes the
+single-device step on the global batch and returns its metrics. Without a
+process group no collective is issued.
 """
 
 from __future__ import annotations
@@ -49,6 +56,8 @@ from torch.profiler import record_function
 from mocogan_tpu_torch.configs import ExperimentConfig
 from mocogan_tpu_torch.models import generator
 from mocogan_tpu_torch.ops import layers, losses, preproc, sampling
+from mocogan_tpu_torch.parallel import mesh as pmesh
+from mocogan_tpu_torch.parallel.mesh import Mesh
 from mocogan_tpu_torch.train.state import TrainState
 from mocogan_tpu_torch.utils import prng
 from mocogan_tpu_torch.utils.platform import upload
@@ -83,14 +92,29 @@ def draw_step(cfg: ExperimentConfig, seed: int, step: int,
     return d
 
 
-def _fake(state: TrainState, noise: Draws) -> torch.Tensor:
+_BATCH_AXIS = {"eps": 1}    # eps is (T, B, d_eps); every other draw (B, ...)
+
+
+def shard_draws(draws: Draws, mesh: Optional[Mesh]) -> Draws:
+    """The rank's rows of a step's global draws (as from ``draw_noise`` or
+    ``draw_step``): axis 1 of eps, axis 0 of the rest."""
+    if mesh is None or mesh.world_size == 1:
+        return draws
+    return {k: pmesh.local_batch_slice(mesh, v, axis=_BATCH_AXIS.get(k, 0))
+            for k, v in draws.items()}
+
+
+def _fake(state: TrainState, noise: Draws, mesh: Optional[Mesh]
+          ) -> torch.Tensor:
     """Fake clips (B, T, C, H, W) with their graph; advances G's BN."""
     return state.nets["gen"].sample(noise["z_c"], noise["h0"], noise["eps"],
-                                    train=True, labels=noise.get("labels"))
+                                    train=True, labels=noise.get("labels"),
+                                    mesh=mesh)
 
 
 def _d_losses(state: TrainState, real_cf: torch.Tensor, fake: torch.Tensor,
-              noise: Draws, labels: Optional[torch.Tensor]
+              noise: Draws, labels: Optional[torch.Tensor],
+              mesh: Optional[Mesh]
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """L_DI + L_DV on real (B, T, C, H, W) and the detached fakes; advances
     the D BN stats."""
@@ -99,13 +123,15 @@ def _d_losses(state: TrainState, real_cf: torch.Tensor, fake: torch.Tensor,
     di, dv = state.nets["di"], state.nets.get("dv")
     metrics: Dict[str, torch.Tensor] = {}
     fake = fake.detach()
-    di_real = di(sampling.sample_frames(real_cf, noise["i_real"]), train=True)
-    di_fake = di(sampling.sample_frames(fake, noise["i_fake"]), train=True)
+    di_real = di(sampling.sample_frames(real_cf, noise["i_real"]), train=True,
+                 mesh=mesh)
+    di_fake = di(sampling.sample_frames(fake, noise["i_fake"]), train=True,
+                 mesh=mesh)
     loss_d = metrics["loss_di"] = losses.d_loss(di_real, di_fake, smooth)
     if dv is not None:
         dv_real, cls_real = dv(real_cf.transpose(1, 2).contiguous(),
-                               train=True)
-        dv_fake, cls_fake = dv(fake.transpose(1, 2), train=True)
+                               train=True, mesh=mesh)
+        dv_fake, cls_fake = dv(fake.transpose(1, 2), train=True, mesh=mesh)
         loss_dv = losses.d_loss(dv_real, dv_fake, smooth)
         if cls_real is not None:
             aux = (losses.categorical_loss(cls_real, labels)
@@ -117,7 +143,8 @@ def _d_losses(state: TrainState, real_cf: torch.Tensor, fake: torch.Tensor,
     return loss_d, metrics
 
 
-def _g_losses(state: TrainState, fake: torch.Tensor, noise: Draws
+def _g_losses(state: TrainState, fake: torch.Tensor, noise: Draws,
+              mesh: Optional[Mesh]
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """L_G through the Ds as they are now, in train mode without a BN
     update."""
@@ -126,9 +153,10 @@ def _g_losses(state: TrainState, fake: torch.Tensor, noise: Draws
     metrics: Dict[str, torch.Tensor] = {}
     loss_g = metrics["loss_gen_di"] = losses.g_loss(di(
         sampling.sample_frames(fake, noise["i_fake"]), train=True,
-        update=False))
+        update=False, mesh=mesh))
     if dv is not None:
-        g_dv, cls = dv(fake.transpose(1, 2), train=True, update=False)
+        g_dv, cls = dv(fake.transpose(1, 2), train=True, update=False,
+                       mesh=mesh)
         metrics["loss_gen_dv"] = losses.g_loss(g_dv)
         loss_g = loss_g + metrics["loss_gen_dv"]
         if cls is not None:
@@ -139,15 +167,29 @@ def _g_losses(state: TrainState, fake: torch.Tensor, noise: Draws
     return loss_g, metrics
 
 
-def _grads(state: TrainState, loss: torch.Tensor,
-           names: Iterable[str]) -> Grads:
+def _grads(state: TrainState, loss: torch.Tensor, names: Iterable[str],
+           mesh: Optional[Mesh]) -> Grads:
+    """{net: {param name: gradient}} of `loss`, each net's averaged over
+    the ranks of `mesh` in one flat bucket."""
     named = [(n, pn, p) for n in names
              for pn, p in state.nets[n].named_parameters()]
     gs = torch.autograd.grad(loss, [p for _, _, p in named])
     out: Grads = {}
     for (n, pn, _), g in zip(named, gs):
         out.setdefault(n, {})[pn] = g
-    return out
+    return {n: dict(zip(g, pmesh.all_reduce_grads(list(g.values()), mesh)))
+            for n, g in out.items()}
+
+
+def _mean_metrics(metrics: Dict[str, torch.Tensor], mesh: Optional[Mesh]
+                  ) -> Dict[str, torch.Tensor]:
+    """The metrics, detached and averaged over the ranks (one
+    all-reduce)."""
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    if mesh is None or not mesh.collective:
+        return metrics
+    return dict(zip(metrics, pmesh.all_reduce_mean(
+        torch.stack(list(metrics.values())), mesh).unbind(0)))
 
 
 def _d_names(state: TrainState) -> List[str]:
@@ -162,19 +204,22 @@ def _real(state: TrainState, real: torch.Tensor) -> torch.Tensor:
 
 
 def compute_grads(state: TrainState, real: torch.Tensor, noise: Draws,
-                  labels: Optional[torch.Tensor] = None
+                  labels: Optional[torch.Tensor] = None,
+                  mesh: Optional[Mesh] = None
                   ) -> Tuple[Grads, Dict[str, torch.Tensor]]:
     """The simultaneous order's per-net gradients {net: {param name:
-    grad}} and the step's metrics."""
+    grad}} and the step's metrics; with a `mesh`, of the global batch
+    (`real`, `noise` and `labels` hold the rank's rows)."""
     with record_function("losses"):
         real_cf = _real(state, real)
-        fake = _fake(state, noise)
-        loss_d, metrics = _d_losses(state, real_cf, fake, noise, labels)
-        loss_g, m_g = _g_losses(state, fake, noise)
+        fake = _fake(state, noise, mesh)
+        loss_d, metrics = _d_losses(state, real_cf, fake, noise, labels,
+                                    mesh)
+        loss_g, m_g = _g_losses(state, fake, noise, mesh)
     with record_function("grads"):
-        grads = _grads(state, loss_d, _d_names(state))
-        grads.update(_grads(state, loss_g, ["gen"]))
-    return grads, {k: v.detach() for k, v in {**metrics, **m_g}.items()}
+        grads = _grads(state, loss_d, _d_names(state), mesh)
+        grads.update(_grads(state, loss_g, ["gen"], mesh))
+    return grads, _mean_metrics({**metrics, **m_g}, mesh)
 
 
 def _check_finite(state: TrainState, metrics: Dict[str, torch.Tensor]):
@@ -200,23 +245,27 @@ def _update(state: TrainState, names: Iterable[str], grads: Grads) -> None:
 
 
 def _sequential(state: TrainState, real: torch.Tensor, noise: Draws,
-                labels: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+                labels: Optional[torch.Tensor], mesh: Optional[Mesh]
+                ) -> Dict[str, torch.Tensor]:
     """The sequential order's phases; returns the metrics."""
     with record_function("losses"):
         real_cf = _real(state, real)
-        fake = _fake(state, noise)
-        loss_d, metrics = _d_losses(state, real_cf, fake, noise, labels)
+        fake = _fake(state, noise, mesh)
+        loss_d, metrics = _d_losses(state, real_cf, fake, noise, labels,
+                                    mesh)
     with record_function("grads"):
-        grads = _grads(state, loss_d, _d_names(state))
+        grads = _grads(state, loss_d, _d_names(state), mesh)
+    metrics = _mean_metrics(metrics, mesh)
     _check_finite(state, metrics)
     _update(state, _d_names(state), grads)
     with record_function("losses"):
-        loss_g, m_g = _g_losses(state, fake, noise)
+        loss_g, m_g = _g_losses(state, fake, noise, mesh)
     with record_function("grads"):
-        grads = _grads(state, loss_g, ["gen"])
+        grads = _grads(state, loss_g, ["gen"], mesh)
+    m_g = _mean_metrics(m_g, mesh)
     _check_finite(state, m_g)
     _update(state, ["gen"], grads)
-    return {k: v.detach() for k, v in {**metrics, **m_g}.items()}
+    return {**metrics, **m_g}
 
 
 def _check_order(cfg: ExperimentConfig) -> None:
@@ -228,14 +277,19 @@ def _check_order(cfg: ExperimentConfig) -> None:
 
 def train_step(state: TrainState, real: torch.Tensor,
                noise: Optional[Draws] = None,
-               labels: Optional[torch.Tensor] = None
-               ) -> Dict[str, torch.Tensor]:
+               labels: Optional[torch.Tensor] = None,
+               mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
     """One adversarial iteration on real (B, T, H, W, C) float32 in [-1, 1]
     with, for the categorical model, their labels (B,) on the same device.
     Updates `state` in place and returns the metrics (0-dim tensors on the
     device). `noise` (as from ``draw_noise``) overrides the step's draws.
     With ``debug_nans`` a non-finite loss raises before the update of its
-    phase (in the sequential order the D update precedes G's loss)."""
+    phase (in the sequential order the D update precedes G's loss).
+
+    With a data-parallel `mesh`, `real`, `labels` and `noise` are the
+    rank's rows of the global batch (``shard_draws`` of the global draws;
+    by default the step draws the global batch's noise and slices it), and
+    the step is the single-device step on the global batch."""
     cfg = state.cfg
     _check_order(cfg)
     m = cfg.model
@@ -245,12 +299,13 @@ def train_step(state: TrainState, real: torch.Tensor,
     if m.conditional and labels is None:
         raise ValueError("the categorical model needs the real clips' labels")
     if noise is None:
-        noise = draw_noise(cfg, state.seed, state.step, real.shape[0],
-                           state.device)
+        n = 1 if mesh is None else mesh.world_size
+        noise = shard_draws(draw_noise(cfg, state.seed, state.step,
+                                       real.shape[0] * n, state.device), mesh)
     if cfg.train.update_order == "sequential":
-        metrics = _sequential(state, real, noise, labels)
+        metrics = _sequential(state, real, noise, labels, mesh)
     else:
-        grads, metrics = compute_grads(state, real, noise, labels)
+        grads, metrics = compute_grads(state, real, noise, labels, mesh)
         _check_finite(state, metrics)
         _update(state, state.nets, grads)
     state.step += 1
@@ -262,7 +317,8 @@ def cached_multi_train_step(state: TrainState, pool: torch.Tensor,
                             rh: Optional[torch.Tensor] = None,
                             rw: Optional[torch.Tensor] = None,
                             draws: Optional[Sequence[Draws]] = None,
-                            labels: Optional[torch.Tensor] = None
+                            labels: Optional[torch.Tensor] = None,
+                            mesh: Optional[Mesh] = None
                             ) -> Dict[str, torch.Tensor]:
     """k steps with the whole clip store resident on the device.
 
@@ -271,7 +327,11 @@ def cached_multi_train_step(state: TrainState, pool: torch.Tensor,
     (``preproc.resize_weights``), built here when not given. `draws`, one
     dict per step as from ``draw_step``, overrides the steps' draws.
     labels: (N,) class of each clip (CPU), which the categorical model
-    needs. Returns the metrics averaged over the k steps."""
+    needs. Returns the metrics averaged over the k steps.
+
+    With a data-parallel `mesh` every rank holds the whole pool, plans the
+    global batch and gathers and resizes only its rows of the plan, in one
+    launch of the ingest kernel a step; `draws` are the global ones."""
     cfg = state.cfg
     if cfg.model.conditional and labels is None:
         raise ValueError("the categorical model needs the pool's labels")
@@ -284,9 +344,9 @@ def cached_multi_train_step(state: TrainState, pool: torch.Tensor,
     ms: List[Dict[str, torch.Tensor]] = []
     for i in range(k):
         with record_function("plan"):
-            d = (draws[i] if draws is not None else
-                 draw_step(cfg, state.seed, state.step, lengths,
-                           state.device))
+            d = shard_draws(draws[i] if draws is not None else
+                            draw_step(cfg, state.seed, state.step, lengths,
+                                      state.device), mesh)
             frame_ix = sampling.window_indices(lengths, d["sel"],
                                                d["starts"], t)
             clip_ix = upload(d["sel"].to(torch.int32), pool.device)
@@ -297,14 +357,15 @@ def cached_multi_train_step(state: TrainState, pool: torch.Tensor,
         with record_function("ingest"):
             real = preproc.resize_normalize_gather(pool, clip_ix, frame_ix,
                                                    rh, rw)
-        ms.append(train_step(state, real, d, lab))
+        ms.append(train_step(state, real, d, lab, mesh))
     return {key: torch.stack([m[key] for m in ms]).mean() for key in ms[0]}
 
 
 def multi_train_step(state: TrainState, batches: torch.Tensor,
                      frame_idx: Optional[torch.Tensor] = None,
                      labels: Optional[torch.Tensor] = None,
-                     draws: Optional[Sequence[Draws]] = None
+                     draws: Optional[Sequence[Draws]] = None,
+                     mesh: Optional[Mesh] = None
                      ) -> Dict[str, torch.Tensor]:
     """k = batches.shape[0] steps on a stack of host batches on the state's
     device.
@@ -318,7 +379,12 @@ def multi_train_step(state: TrainState, batches: torch.Tensor,
     ``video_length``. labels: (K, B) classes of the clips on the state's
     device, which the categorical model needs. `draws`, one dict per step
     as from ``draw_noise``, overrides the steps' noise. Returns the metrics
-    averaged over the k steps."""
+    averaged over the k steps.
+
+    With a data-parallel `mesh`, `batches`, `frame_idx` and `labels` hold
+    the rank's rows of each global batch (``HostFeed`` slices them) and
+    `draws` the global draws; each step is the single-device step on the
+    global batch."""
     cfg = state.cfg
     _check_order(cfg)
     k, b, t_raw = batches.shape[:3]
@@ -342,8 +408,10 @@ def multi_train_step(state: TrainState, batches: torch.Tensor,
     ms: List[Dict[str, torch.Tensor]] = []
     for j in range(k):
         with record_function("plan"):
-            d = (draws[j] if draws is not None else
-                 draw_noise(cfg, state.seed, state.step, b, state.device))
+            n = 1 if mesh is None else mesh.world_size
+            d = shard_draws(draws[j] if draws is not None else
+                            draw_noise(cfg, state.seed, state.step, b * n,
+                                       state.device), mesh)
         if raw:
             with record_function("ingest"):
                 real = preproc.resize_normalize_gather(pool, clip_ix[j],
@@ -351,5 +419,5 @@ def multi_train_step(state: TrainState, batches: torch.Tensor,
         else:
             real = batches[j]
         ms.append(train_step(state, real, d,
-                             None if labels is None else labels[j]))
+                             None if labels is None else labels[j], mesh))
     return {key: torch.stack([m[key] for m in ms]).mean() for key in ms[0]}

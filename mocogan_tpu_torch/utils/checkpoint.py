@@ -12,6 +12,10 @@ A sidecar ``stream_version.json`` records what fixes the (seed, step) ->
 clip-window stream besides the seed: the port's ``DATA_STREAM_VERSION`` and
 ``data.epoch_shuffle``. A restore under other values says that the data
 order of the resumed run differs.
+
+Under data parallelism (a manager given the ``mesh``) rank 0 writes and
+prunes, every rank waits at a barrier after each save, and every rank
+restores the same file.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from typing import TYPE_CHECKING, List, Optional
 import torch
 
 from mocogan_tpu_torch.ops.sampling import DATA_STREAM_VERSION
+from mocogan_tpu_torch.parallel import mesh as pmesh
 
 if TYPE_CHECKING:  # train.state imports nothing of this module
     from mocogan_tpu_torch.train.state import TrainState
@@ -34,16 +39,20 @@ _FILE = "state.pt"
 
 class CheckpointManager:
     def __init__(self, directory: str, max_to_keep: int = 3,
-                 stream_meta: Optional[dict] = None):
+                 stream_meta: Optional[dict] = None,
+                 mesh: Optional[pmesh.Mesh] = None):
         """stream_meta: facts besides the code version that fix the (seed,
         step) -> clip stream, e.g. data.epoch_shuffle; recorded in the
-        sidecar and compared on restore."""
+        sidecar and compared on restore. mesh: the data-parallel world
+        whose rank 0 writes."""
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         self.stream_meta = {"data_stream_version": DATA_STREAM_VERSION,
                             **(stream_meta or {})}
-        # step, seconds, bytes and path of the last save
+        self.mesh = mesh
+        # step, seconds, bytes and path of the last save (rank 0)
         self.last_save: Optional[dict] = None
+        self._saved_step: Optional[int] = None
         os.makedirs(self.directory, exist_ok=True)
 
     def _path(self, step: int) -> str:
@@ -62,11 +71,19 @@ class CheckpointManager:
         ``max_to_keep`` newest (all, if 0). A step this manager has just
         saved is not written again; one left by another run is replaced.
         Saving is synchronous, so `wait` changes nothing; it keeps the JAX
-        package's surface."""
+        package's surface. Every rank of the mesh calls it; rank 0 writes,
+        then all meet at a barrier."""
         step = int(state.step)
-        path = self._path(step)
-        if self.last_save is not None and self.last_save["step"] == step:
+        if self._saved_step == step:
             return step
+        self._saved_step = step
+        if self.mesh is None or self.mesh.is_main:
+            self._write(state, step)
+        pmesh.barrier(self.mesh)
+        return step
+
+    def _write(self, state: "TrainState", step: int) -> None:
+        path = self._path(step)
         t0 = time.perf_counter()
         os.makedirs(os.path.dirname(path), exist_ok=True)
         blob = {"seed": state.seed, "step": step,
@@ -87,7 +104,6 @@ class CheckpointManager:
         print(f"[checkpoint] step {step}: "
               f"{self.last_save['bytes'] / 1e6:.1f} MB in "
               f"{self.last_save['seconds']:.3f} s -> {path}")
-        return step
 
     def restore(self, template: "TrainState",
                 step: Optional[int] = None) -> "TrainState":

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -29,3 +30,16 @@ def upload(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     if device.type == "cuda":
         t = t.pin_memory()
     return t.to(device, non_blocking=True)
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """``cudnn.deterministic = True`` and ``cudnn.benchmark = False`` for
+    the block; the previous values after it."""
+    cudnn = torch.backends.cudnn
+    old = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = old

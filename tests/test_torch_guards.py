@@ -43,6 +43,9 @@ def test_guard_tells_the_port_from_the_jax_package():
     assert _forbidden("jax.numpy")
     assert not _forbidden("mocogan_tpu_torch")
     assert not _forbidden("mocogan_tpu_torch.ops.preproc")
+    files = _port_files()
+    for sub in ("mesh.py", "launch.py"):
+        assert os.path.join(PORT, "parallel", sub) in files
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -56,7 +59,9 @@ def test_entry_points_refuse_a_missing_gpu(monkeypatch, tmp_path):
     from mocogan_tpu_torch import eval_fvd, generate, get_config
     from mocogan_tpu_torch.eval import fvd, i3d, parity
     from mocogan_tpu_torch.eval.panel import PanelRunner
+    from mocogan_tpu_torch.parallel import mesh
     from mocogan_tpu_torch.train import state
+    from mocogan_tpu_torch.train.__main__ import main as train_main
     from mocogan_tpu_torch.train.loop import Trainer
     from mocogan_tpu_torch.utils import profiling
 
@@ -71,6 +76,10 @@ def test_entry_points_refuse_a_missing_gpu(monkeypatch, tmp_path):
                  lambda: state.create(cfg, device="cuda"),
                  lambda: Trainer(cfg, out_dir=str(tmp_path)),
                  lambda: Trainer(cfg, out_dir=str(tmp_path), resume=True),
+                 lambda: train_main(["--out-dir", str(tmp_path),
+                                     "--num-devices", "2"]),
+                 lambda: mesh.make_mesh(),
+                 lambda: mesh.make_mesh(device="cuda:1"),
                  lambda: generate.main(["--run-dir", str(tmp_path)]),
                  lambda: eval_fvd.main(["--run-dir", str(tmp_path)]),
                  lambda: parity.main([]),

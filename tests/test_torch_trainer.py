@@ -159,10 +159,22 @@ def test_what_raises_before_the_first_step(tmp_path, kw, err):
     assert t.state.step == 0
 
 
-def test_more_than_one_device_raises(tmp_path):
-    cfg = get_config("mug", **{**TINY, "train.num_devices": 2})
-    with pytest.raises(NotImplementedError, match="A11"):
+@pytest.mark.parametrize("kw, jax_args", [
+    ({"train.num_devices": 2}, {"num_devices": 2}),
+    ({"train.n_slices": 2}, {"n_slices": 2})])
+def test_more_than_one_device_raises(tmp_path, kw, jax_args):
+    """In a one-process world, two devices or two slices raise the
+    ValueError that the JAX package's make_mesh raises on one device."""
+    import jax
+
+    from mocogan_tpu.parallel import mesh as jmesh
+
+    with pytest.raises(ValueError) as want:
+        jmesh.make_mesh(devices=jax.devices()[:1], **jax_args)
+    cfg = get_config("mug", **{**TINY, **kw})
+    with pytest.raises(ValueError) as got:
         Trainer(cfg, out_dir=str(tmp_path), device="cpu")
+    assert str(got.value) == str(want.value)
 
 
 def test_raw_stack_is_the_pool_of_each_step():

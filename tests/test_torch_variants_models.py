@@ -170,8 +170,8 @@ def _dtype_hooks(net):
     seen = {}
     for name, mod in net.named_children():
         if isinstance(mod, tlayers.BatchNorm):
-            def normalize(x, train, n=name, f=mod.normalize):
-                out = f(x, train)
+            def normalize(x, train, *mesh, n=name, f=mod.normalize):
+                out = f(x, train, *mesh)
                 seen[n] = out[0].dtype
                 return out
             mod.normalize = normalize
