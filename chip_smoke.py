@@ -11,7 +11,8 @@ Phases, in order; any failure raises and exits non-zero:
      and the library yardstick (F.interpolate) with CUDA events, each
      rotating over the same 8 batch plans so that none sits in L2; then
      the same on the device-cached eval pool's layout (one launch over 256
-     windows drawn with replacement from the store);
+     windows drawn with replacement from the store), F.interpolate
+     included;
   4. render a 96 px synthetic uint8 clip store and train the full-width mug
      model (fp32, batch 16, 16 steps per call) through the device-cached
      trainer, with the quality panel (256 eval clips) after the last log
@@ -57,7 +58,20 @@ Phases, in order; any failure raises and exits non-zero:
      calls); a one-rank NCCL world through the train CLI; with two or more
      cards, two NCCL ranks on two cards through the train CLI (steps/s and
      clips/s);
- 14. print the kernels line, then the result line.
+ 14. reference parity, on the mug run of phase 5 and the categorical
+     run of phase 9: export each to Chainer layout (the mug state also as
+     a Trainer snapshot with an optimizer entry, /N counters and pre-BN
+     biases), import it on the card and hold every parameter and BN
+     buffer bit-equal to the source (the deconv weights equal to the
+     npz's dc{i}/W), and generate(seed=3), D_I and D_V logits (and the
+     class head) bit-equal under cudnn.deterministic; the parity CLI's
+     --reference-npz and --run-dir digests and the import CLI's equal;
+     the TF-less converter raising ImportError; a Sonnet-shaped I3D
+     variable set through convert_variables, its logits card vs CPU;
+     parity_day at n 256 (import, digest, I3D-FVD against the store
+     through one kernel launch, comparator), ours vs reference ~0;
+     preprocessing two AVIs where OpenCV is installed;
+ 15. print the kernels line, then the result line.
 Every training phase prints the card's name and power limit, steps/s and
 the peak of torch.cuda.max_memory_allocated; each variant's kernel
 launches must equal its steps plus its eval-pool launches.
@@ -658,6 +672,329 @@ def _data_parallel(overrides, pool, lengths, rh, rw, plans, rates, smi,
     return out
 
 
+def _restore(cfg, run_dir, dev):
+    """A fresh state of `cfg` on `dev` holding run_dir's latest
+    checkpoint."""
+    from mocogan_tpu_torch.train import state as tstate
+    from mocogan_tpu_torch.utils.checkpoint import CheckpointManager
+
+    return CheckpointManager(os.path.join(run_dir, "checkpoints")).restore(
+        tstate.create(cfg, device=dev))
+
+
+def _chainer_snapshot(paths, path, step) -> dict:
+    """A Chainer Trainer snapshot npz of the exported nets {net: npz}:
+    ``updater/model:<group>/...`` per net, one optimizer entry, the
+    iteration, a ``/N`` counter per BN layer and non-zero pre-BN biases
+    (absorbed on import). Returns the keys the import must absorb, per
+    net."""
+    import numpy as np
+
+    from mocogan_tpu_torch.eval import import_chainer
+
+    rng = np.random.default_rng(step)
+    groups = {"gen": "gen", "di": "image_dis", "dv": "video_dis"}
+    entries = {"updater/iteration": np.asarray(step)}
+    absorbed = {}
+    for net, npz in paths.items():
+        with np.load(npz) as f:
+            tensors = dict(f)
+        extra = {}
+        for key in import_chainer._ABSORBED_BY_BN[net]:
+            # W is (out, in) for a Linear, (O, I, ...) for a conv and
+            # (I, O, ...) for a deconv
+            w = tensors[key[:-2] + "/W"]
+            n_out = w.shape[1] if key.startswith("dc") else w.shape[0]
+            extra[key] = rng.normal(size=n_out).astype(np.float32)
+        for key in tensors:
+            if key.endswith("/avg_mean"):
+                extra[key[:-len("avg_mean")] + "N"] = np.asarray(step)
+        absorbed[net] = set(extra)
+        for key, v in {**tensors, **extra}.items():
+            entries[f"updater/model:{groups[net]}/{key}"] = v
+    entries["updater/optimizer:gen/fc/W/m"] = np.zeros_like(
+        entries["updater/model:gen/fc/W"])
+    np.savez(path, **entries)
+    return absorbed
+
+
+def _sonnet_variables(prefix, seed):
+    """({checkpoint variable: array} as the public kinetics-i3d TF
+    checkpoint holds them, with an Adam slot and a Flow-tower variable the
+    converter must leave, {contract key: array} they convert to)."""
+    import numpy as np
+
+    from mocogan_tpu_torch.eval import i3d, i3d_convert
+
+    rng = np.random.default_rng(seed)
+    truth = i3d.init_random(seed)                # He-normal kernels
+    for key, v in truth.items():                 # BN away from identity
+        leaf = key.rsplit("/", 1)[1]
+        if leaf in ("beta", "mean"):
+            truth[key] = (rng.normal(size=v.shape) * 0.05).astype(np.float32)
+        elif leaf == "var":
+            truth[key] = (np.abs(rng.normal(size=v.shape)) * 0.1
+                          + 0.9).astype(np.float32)
+    variables = {}
+    for var, key, _ in i3d_convert.variable_map(prefix):
+        leaf = key.rsplit("/", 1)[1]
+        variables[var] = (truth[key].reshape(1, 1, 1, 1, -1)
+                          if leaf in ("beta", "mean", "var") else truth[key])
+    w = variables[f"{prefix}/Conv3d_1a_7x7/conv_3d/w"]
+    variables[f"{prefix}/Conv3d_1a_7x7/conv_3d/w/Adam"] = np.zeros_like(w)
+    variables["Flow/inception_i3d/Conv3d_1a_7x7/conv_3d/w"] = np.zeros(
+        (7, 7, 7, 2, 64), np.float32)
+    return variables, truth
+
+
+def _write_avi(path, seed, t=20, size=120):
+    """An MJPG AVI of a moving square."""
+    import cv2
+    import numpy as np
+
+    color = np.random.default_rng(seed).integers(64, 256, size=3).tolist()
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 10,
+                         (size, size))
+    if not vw.isOpened():
+        raise AssertionError(f"cv2 cannot write an MJPG AVI to {path}")
+    for ti in range(t):
+        f = np.zeros((size, size, 3), np.uint8)
+        f[20:70, 4 + 4 * ti:40 + 4 * ti] = color
+        vw.write(f)
+    vw.release()
+
+
+def _reference_parity(cfg, run_dir, cfg_cat, run_cat, tmp, dev, smi,
+                      n=EVAL_CLIPS) -> dict:
+    """Phase 14: export the mug run's state (the latest checkpoint of
+    `run_dir`) and the categorical run's, import them back on `dev`
+    (a Chainer Trainer snapshot; per-net files), hold the imported nets
+    bit-equal to their sources, run the parity and import CLIs, convert a
+    Sonnet-shaped I3D variable set, run parity_day at `n` clips, and
+    preprocess two AVIs where OpenCV is installed. Returns the kernel's
+    launches in parity_day and the stage seconds."""
+    import contextlib
+    import importlib.util
+    import io
+
+    import numpy as np
+    import torch
+
+    from mocogan_tpu_torch import parity_day
+    from mocogan_tpu_torch.data import clips, preprocess
+    from mocogan_tpu_torch.eval import i3d, i3d_convert, import_chainer
+    from mocogan_tpu_torch.eval import parity
+    from mocogan_tpu_torch.models import discriminators, generator
+    from mocogan_tpu_torch.ops import preproc
+    from mocogan_tpu_torch.utils.platform import cudnn_deterministic
+
+    dev_args = [] if dev.type == "cuda" else ["--device", "cpu"]
+    t_phase = time.perf_counter()
+    # ---- export, and import on the card -------------------------------
+    src = _restore(cfg, run_dir, dev)
+    paths = import_chainer.export_state(src, os.path.join(tmp, "exp"))
+    snap = os.path.join(tmp, f"snapshot_iter_{src.step}.npz")
+    absorbed = _chainer_snapshot(paths, snap, src.step)
+    t0 = time.perf_counter()
+    imp, reports = import_chainer.import_experiment(cfg, snapshot_npz=snap,
+                                                    device=dev)
+    import_s = time.perf_counter() - t0
+    if reports["snapshot"] != {"groups": {"gen": "gen", "di": "image_dis",
+                                          "dv": "video_dis"},
+                               "unmapped": []}:
+        raise AssertionError(f"snapshot split: {reports['snapshot']}")
+    for net, module in imp.nets.items():
+        rep = reports[net]
+        got = {a["key"] for a in rep["absorbed"]}
+        if rep["missing"] or rep["shape_mismatch"] or rep["unused"] \
+                or got != absorbed[net]:
+            raise AssertionError(f"{net} import report: {rep}")
+        want = src.nets[net].state_dict()
+        for key, v in module.state_dict().items():
+            if v.device != want[key].device or not torch.equal(v, want[key]):
+                raise AssertionError(f"imported {net}.{key} differs from "
+                                     f"the source")
+    with np.load(paths["gen"]) as f:
+        for i in range(4):
+            w = getattr(imp.nets["gen"], f"deconv{i}").w.detach().cpu()
+            if not np.array_equal(w.numpy(), f[f"dc{i}/W"]):
+                raise AssertionError(f"deconv{i}.w is not the npz's dc{i}/W")
+    n_params = sum(len(net.state_dict()) for net in imp.nets.values())
+    print(f"[reference parity] {smi}: mug step {src.step} exported to "
+          f"Chainer layout and imported from a Trainer snapshot on {dev} in "
+          f"{import_s:.2f} s: {n_params} parameters and BN buffers "
+          f"bit-equal to the source, deconv0..3.w equal to the npz's "
+          f"dc0..3/W; absorbed " + json.dumps(
+              {kk: len(v) for kk, v in absorbed.items()}) + " pre-BN biases "
+          f"and /N counters, 0 missing, 0 unused")
+
+    # ---- the imported nets compute what their sources compute ------------
+    m = cfg.model
+    x = (torch.rand((8, m.video_length, m.image_size, m.image_size,
+                     m.channels), generator=torch.Generator().manual_seed(1))
+         * 2 - 1).to(dev)
+
+    def outputs(state, labels=None):
+        nets = state.nets
+        with cudnn_deterministic(), torch.no_grad():
+            out = {"generate": generator.generate(nets["gen"], 4, seed=3,
+                                                  labels=labels),
+                   "di": discriminators.image_apply(
+                       nets["di"], x.flatten(0, 1), train=False)}
+            out["dv"], cls = discriminators.video_apply(nets["dv"], x,
+                                                        train=False)
+        if cls is not None:
+            out["dv_cls"] = cls
+        return out
+
+    def same(a, b, what):
+        bad = [kk for kk in a if not torch.equal(a[kk], b[kk])]
+        if bad:
+            raise AssertionError(f"{what}: imported vs source differ in "
+                                 f"{bad}")
+        return sorted(a)
+
+    checked = same(outputs(imp), outputs(src), "mug")
+    src_cat = _restore(cfg_cat, run_cat, dev)
+    paths_cat = import_chainer.export_state(src_cat,
+                                            os.path.join(tmp, "exp_cat"))
+    imp_cat, rep_cat = import_chainer.import_experiment(
+        cfg_cat, gen_npz=paths_cat["gen"], di_npz=paths_cat["di"],
+        dv_npz=paths_cat["dv"], device=dev)
+    if any(r["missing"] or r["unused"] for r in rep_cat.values()):
+        raise AssertionError(f"categorical import: {rep_cat}")
+    lab = torch.tensor([0, 5, 2, 3])
+    checked_cat = same(outputs(imp_cat, lab), outputs(src_cat, lab),
+                       "categorical")
+    print(f"[reference parity] {smi}: under cudnn.deterministic, imported "
+          f"vs source bit-equal: mug {checked} (generate(seed=3) of 4 "
+          f"clips, D_I on the 128 frames and D_V on 8 fixed clips); "
+          f"categorical step {src_cat.step} {checked_cat} (labels "
+          f"{lab.tolist()}, fc_cls)")
+    del imp_cat, src_cat
+
+    # ---- the CLIs ----------------------------------------------------------
+    common = ["--config", "mug", "--n", "4", "--seed", "0", *dev_args]
+    by_npz = parity.main([*common, "--reference-npz", paths["gen"]])
+    by_run = parity.main([*common, "--run-dir", run_dir])
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        by_imp = import_chainer.main([*common, "--snapshot-npz", snap,
+                                      "--digest"])
+    print(f"[import CLI] {printed.getvalue().strip().splitlines()[-1]}")
+    if not (by_npz["deterministic"]
+            and by_npz["digest"] == by_run["digest"] == by_imp["digest"]):
+        raise AssertionError(f"digests: --reference-npz {by_npz}, --run-dir "
+                             f"{by_run}, import CLI {by_imp['digest']}")
+    print(f"[reference parity] {smi}: parity CLI --reference-npz gen.npz and "
+          f"--run-dir <mug run> give one digest ({by_npz['digest'][:16]}, n "
+          f"4, seed 0), as does the import CLI's --snapshot-npz --digest")
+
+    # ---- I3D conversion without TensorFlow -------------------------------
+    prefix = "RGB/inception_i3d"
+    if importlib.util.find_spec("tensorflow") is None:
+        try:
+            i3d_convert.convert(os.path.join(tmp, "no_ckpt"))
+        except ImportError as e:
+            if "TensorFlow" not in str(e):
+                raise
+            print(f"[reference parity] no TensorFlow here: the checkpoint "
+                  f"reader is a host tool (convert raised ImportError: "
+                  f"{e})")
+        else:
+            raise AssertionError("convert ran without TensorFlow")
+    else:
+        print("[reference parity] TensorFlow is installed here: the "
+              "converter's ImportError path does not apply")
+    variables, truth = _sonnet_variables(prefix, seed=1)
+    weights, rep_i3d = i3d_convert.convert_variables(variables)
+    if rep_i3d["unused"] != sorted(set(variables) - {
+            v for v, _, _ in i3d_convert.variable_map(prefix)}) or any(
+                not np.array_equal(weights[kk], v) for kk, v in truth.items()):
+        raise AssertionError(f"convert_variables: {rep_i3d['unused']}")
+    i3d_npz = os.path.join(tmp, "i3d_converted.npz")
+    i3d_convert.save_npz(weights, i3d_npz)          # re-validated on load
+    clip = (torch.rand((1, 16, 224, 224, 3),
+                       generator=torch.Generator().manual_seed(2)) * 2 - 1)
+    ex = i3d.I3DExtractor(i3d_npz, features="logits", resize_to=None,
+                          device=dev)
+    card = ex(clip.to(dev)).cpu()
+    with torch.no_grad():
+        cpu = i3d.apply(i3d.to_torch(i3d.load_npz(i3d_npz), "cpu"), clip,
+                        "logits")
+    i3d_rel = _max_err(card, cpu) / float(cpu.abs().max())
+    print(f"[reference parity] {smi}: a Sonnet-shaped I3D variable set "
+          f"({len(variables)} variables, {len(rep_i3d['unused'])} unused: "
+          f"{rep_i3d['unused']}) -> convert_variables -> npz -> load_npz; "
+          f"its logits on one 224x224x16 clip, {dev} vs CPU: max err / max "
+          f"|logit| {i3d_rel:.2e} (tol {I3D_TOL})")
+    if not i3d_rel <= I3D_TOL:
+        raise AssertionError(f"converted I3D {dev} vs CPU: {i3d_rel}")
+
+    # ---- parity_day --------------------------------------------------------
+    our_log = os.path.join(run_dir, "log.jsonl")
+    ref_log = os.path.join(tmp, "reference_log.jsonl")
+    with open(our_log) as f, open(ref_log, "w") as out:
+        for line in f:
+            r = json.loads(line)
+            out.write(json.dumps({kk: v + 0.01 if kk.startswith("loss")
+                                  else v for kk, v in r.items()}) + "\n")
+    preproc.LAUNCHES["resize_norm"] = 0
+    t0 = time.perf_counter()
+    summary = parity_day.main([
+        "--config", "mug", "--snapshot-npz", snap, "--i3d-weights", i3d_npz,
+        "--data-dir", cfg.data.data_dir, "--run-dir", run_dir,
+        "--our-log", our_log, "--reference-log", ref_log, "--n", str(n),
+        "--out", os.path.join(tmp, "parity_day"), *dev_args])
+    pd_s = time.perf_counter() - t0
+    launches = preproc.LAUNCHES["resize_norm"]
+    st = summary["stages"]
+    scores = st.get("fvd", {}).get("scores", {})
+    if set(st) != {"import", "digest", "fvd", "compare"} \
+            or set(scores) != {"reference_vs_real", "ours_vs_real",
+                               "ours_vs_reference"} \
+            or not all(math.isfinite(v) for v in scores.values()) \
+            or not abs(scores["ours_vs_reference"]) \
+            <= 1e-3 * scores["ours_vs_real"] \
+            or st["digest"] != parity.check_determinism(imp.nets["gen"],
+                                                        n=2, seed=0):
+        raise AssertionError(f"parity_day: {summary}")
+    if launches != 1:
+        raise AssertionError(f"parity_day: {launches} kernel launches for "
+                             f"one real-clip pool")
+    print(f"[reference parity] {smi}: parity_day at n {n} in {pd_s:.2f} s "
+          f"(stage seconds " + json.dumps(
+              {kk: round(v, 3) for kk, v in summary["seconds"].items()})
+          + f"): I3D-FVD {json.dumps(scores)} (ours_vs_reference <= 1e-3 x "
+          f"ours_vs_real: the reference is the run's own export), "
+          f"comparator max_nabc {st['compare']['max_nabc']}; kernel "
+          f"launches {launches} (one real-clip pool, B {n})")
+
+    # ---- preprocessing, a host tool where OpenCV is missing ----------------
+    if importlib.util.find_spec("cv2") is None:
+        print("[reference parity] no OpenCV here: preprocessing "
+              "(mocogan_tpu_torch.data.preprocess) is a host tool; its "
+              "store is copied to the card's machine")
+    else:
+        raw = os.path.join(tmp, "raw_videos")
+        for i, cls in enumerate(("walk", "run")):
+            os.makedirs(os.path.join(raw, cls))
+            _write_avi(os.path.join(raw, cls, "v0.avi"), i)
+        store = os.path.join(tmp, "store_preprocessed")
+        n_clips = preprocess.main(["--src", raw, "--out", store,
+                                   "--raw-size", "96"])
+        ds = clips.ClipDataset(store, m.video_length)
+        if n_clips != 2 or len(ds) != 2 or ds.n_classes != 2:
+            raise AssertionError(f"preprocess: {n_clips} clips, {len(ds)} "
+                                 f"in the store")
+        print(f"[reference parity] preprocess CLI: 2 MJPG AVIs in 2 class "
+              f"dirs -> {n_clips} uint8 clips at 96 px, loaded by "
+              f"ClipDataset ({ds.n_classes} classes)")
+    print(f"[reference parity] {smi}: phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "seconds": summary["seconds"],
+            "parity_day_s": pd_s, "fvd": scores, "i3d_rel_err": i3d_rel}
+
+
 def main() -> int:
     import torch
 
@@ -733,31 +1070,15 @@ def main() -> int:
                           f"{h} -> {s} px)")
 
         # the device-cached eval pool's layout: EVAL_CLIPS windows drawn
-        # with replacement (the trainer's draws), one launch
+        # with replacement (the trainer's draws), one launch; also the
+        # layout of eval_fvd's and parity_day's real-clip pools
         ev_sel, ev_frames = eval_windows(lengths_np, EVAL_CLIPS,
                                          m.video_length)
         ev_ix = (torch.from_numpy(ev_sel).to(dev, torch.int32),
                  torch.from_numpy(ev_frames).to(dev, torch.int32))
-        err_ev = _check_kernel(pool, *ev_ix, rh, rw,
-                               f"eval-pool (B {EVAL_CLIPS})")
-        eval_ms, _ = _time_ms(lambda _: preproc.resize_normalize_gather_cuda(
-            pool, *ev_ix, rh, rw), 20)
-        eval_plain_ms, _ = _time_ms(
-            lambda _: preproc.resize_normalize_gather_plain(
-                pool, *ev_ix, rh, rw), 5)
-        # bytes: the distinct frames these windows read, once each
-        frames_read = len({(int(i), int(f)) for i, row in
-                           zip(ev_sel, ev_frames) for f in row})
-        n_ev = EVAL_CLIPS * m.video_length * c
-        moved_ev = (frames_read * h * w * c + 4 * (rh.numel() + rw.numel())
-                    + 4 * EVAL_CLIPS * (1 + m.video_length)
-                    + 4 * n_ev * s * s)
-        flops_ev = n_ev * (4 * s * w + 4 * s * s + 2 * s * s)
-        eval_bound_ms, _ = _bound(moved_ev, flops_ev, rates)
-        print(f"[kernel] eval-pool launch ({EVAL_CLIPS} windows, "
-              f"{frames_read} distinct frames): device ms {eval_ms:.5f}, "
-              f"plain {eval_plain_ms:.5f}, bound {eval_bound_ms} ms "
-              f"({moved_ev / 1e6:.2f} MB)")
+        lay_ev = _layout(pool, [ev_ix], rh, rw, s, rates,
+                         f"eval-pool layout (B {EVAL_CLIPS}, T "
+                         f"{m.video_length}, {h} -> {s} px)")
 
         # ---- 4. train the full-width mug model, device-cached --------------
         trainer = Trainer(cfg, out_dir=os.path.join(tmp, "run"), device=dev)
@@ -1154,7 +1475,11 @@ def main() -> int:
         dp = _data_parallel({"data.data_dir": cfg.data.data_dir}, pool,
                             lengths, rh, rw, plans, rates, smi, tmp)
 
-    # ---- 14. result --------------------------------------------------------
+        # ---- 14. reference parity ---------------------------------------
+        ref = _reference_parity(cfg, run_hf, cfg_cat, run_cat_hf, tmp, dev,
+                                smi)
+
+    # ---- 15. result --------------------------------------------------------
     variants = {"categorical_cached": v_cat, "categorical_host_fed": v_cat_hf,
                 "sequential": v_seq, "bf16": v_bf, "scaled": v_sc,
                 "scaled_no_remat": v_sc_nr}
@@ -1163,6 +1488,7 @@ def main() -> int:
                "host_fed": launches_hf - ev_hf,
                **{kk: v["launches"] for kk, v in variants.items()},
                "data_parallel": dp["launches"],
+               "parity_day": ref["launches"],
                "eval_pool": ev_dc + ev_hf + ev_r + ev_cli + sum(
                    v["eval_pool"] for v in variants.values())}
     print(json.dumps({"kernels": [{
@@ -1171,17 +1497,18 @@ def main() -> int:
         "replaces": "mocogan_tpu/ops/preproc.py:90",
         "launches": sum(by_path.values()), "launches_by_path": by_path,
         "max_abs_err": max(lay_mug["max_abs_err"], lay_sc["max_abs_err"],
-                           dp["layout"]["max_abs_err"], err_hf, err_ev),
+                           dp["layout"]["max_abs_err"], err_hf,
+                           lay_ev["max_abs_err"]),
         "ms": lay_mug["ms"], "plain_ms": lay_mug["plain_ms"],
         "bound_ms": lay_mug["bound_ms"], "bound_by": lay_mug["bound_by"],
         "bound_frac": (None if lay_mug["bound_ms"] is None
                        else lay_mug["bound_ms"] / lay_mug["ms"]),
-        "library_ms": lay_mug["library_ms"], "eval_pool_ms": eval_ms,
-        "eval_pool_plain_ms": eval_plain_ms,
-        "eval_pool_bound_ms": eval_bound_ms,
+        "library_ms": lay_mug["library_ms"], "eval_pool_layout": lay_ev,
         "scaled_layout": lay_sc, "per_rank_layout": dp["layout"]}]}))
     print(json.dumps({"variants": variants, "data_parallel": {
-        kk: v for kk, v in dp.items() if kk not in ("layout", "launches")}}))
+        kk: v for kk, v in dp.items() if kk not in ("layout", "launches")},
+        "reference_parity": {kk: v for kk, v in ref.items()
+                             if kk != "launches"}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

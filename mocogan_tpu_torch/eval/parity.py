@@ -15,7 +15,8 @@ without the flag. ``generate()`` itself now runs with
 (``utils.platform.cudnn_deterministic``), and the check does too.
 
 Run:  python -m mocogan_tpu_torch.eval.parity --config toy \\
-          [--run-dir runs/toy] [--n 4] [--seed 0] [--record P] [--device cpu]
+          [--run-dir runs/toy] [--reference-npz gen.npz [--rename A=C ...]] \\
+          [--n 4] [--seed 0] [--record P] [--device cpu]
 """
 
 from __future__ import annotations
@@ -63,8 +64,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--run-dir", default=None,
                     help="restore the state from this run's checkpoints/")
     ap.add_argument("--reference-npz", default=None,
-                    help="digest the generator of a Chainer save_npz "
-                         "checkpoint (not ported yet)")
+                    help="import the generator from a Chainer save_npz "
+                         "checkpoint (eval/import_chainer.py) and digest "
+                         "its generate() output: the reference-parity path")
+    ap.add_argument("--rename", nargs="*", metavar="ACTUAL=CANONICAL",
+                    help="npz key renames for --reference-npz")
     ap.add_argument("--n", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--record", default=None,
@@ -78,12 +82,17 @@ def main(argv=None) -> dict:
     from mocogan_tpu_torch.utils.platform import resolve_device
 
     device = resolve_device(args.device)
-    if args.reference_npz:
-        raise NotImplementedError(
-            "--reference-npz: the Chainer checkpoint importer is not "
-            "ported yet (ROADMAP A9)")
     cfg = get_config(args.config)
-    state = train_state.create(cfg, device=device)
+    if args.reference_npz:
+        from mocogan_tpu_torch.eval import import_chainer
+
+        state, reports = import_chainer.import_experiment(
+            cfg, gen_npz=args.reference_npz,
+            rename=import_chainer.parse_rename(args.rename), device=device)
+        print(f"[parity] imported generator from {args.reference_npz}: "
+              f"{len(reports['gen']['matched'])} tensors")
+    else:
+        state = train_state.create(cfg, device=device)
     if args.run_dir:
         CheckpointManager(os.path.join(args.run_dir,
                                        "checkpoints")).restore(state)

@@ -88,8 +88,16 @@ def test_parity_cli_records_and_compares(runs, tmp_path, capsys):
         json.dump({**first, "digest": "0" * 64}, f)
     with pytest.raises(SystemExit, match="mismatch"):
         parity.main(args)
-    with pytest.raises(NotImplementedError, match="A9"):
-        parity.main(["--reference-npz", "g.npz", "--device", "cpu"])
+    # the generator of a Chainer-layout npz: its own digest (the reference
+    # path, ``eval/import_chainer.py``)
+    from mocogan_tpu_torch.eval import import_chainer
+
+    src = tstate.create(get_config("toy"), seed=2, device="cpu")
+    npz = import_chainer.export_state(src, str(tmp_path / "ref"))["gen"]
+    ref = parity.main(["--config", "toy", "--n", "2", "--device", "cpu",
+                       "--reference-npz", npz])
+    assert ref["deterministic"] and ref["digest"] == parity.check_determinism(
+        src.nets["gen"], n=2)["digest"] != first["digest"]
 
 
 def test_parity_digest_of_a_run_dir(tmp_path):

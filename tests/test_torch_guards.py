@@ -46,6 +46,9 @@ def test_guard_tells_the_port_from_the_jax_package():
     files = _port_files()
     for sub in ("mesh.py", "launch.py"):
         assert os.path.join(PORT, "parallel", sub) in files
+    for sub in (("eval", "import_chainer.py"), ("eval", "i3d_convert.py"),
+                ("data", "preprocess.py"), ("parity_day.py",)):
+        assert os.path.join(PORT, *sub) in files
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -56,8 +59,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 
 def test_entry_points_refuse_a_missing_gpu(monkeypatch, tmp_path):
-    from mocogan_tpu_torch import eval_fvd, generate, get_config
-    from mocogan_tpu_torch.eval import fvd, i3d, parity
+    from mocogan_tpu_torch import eval_fvd, generate, get_config, parity_day
+    from mocogan_tpu_torch.eval import fvd, i3d, import_chainer, parity
     from mocogan_tpu_torch.eval.panel import PanelRunner
     from mocogan_tpu_torch.parallel import mesh
     from mocogan_tpu_torch.train import state
@@ -83,6 +86,12 @@ def test_entry_points_refuse_a_missing_gpu(monkeypatch, tmp_path):
                  lambda: generate.main(["--run-dir", str(tmp_path)]),
                  lambda: eval_fvd.main(["--run-dir", str(tmp_path)]),
                  lambda: parity.main([]),
+                 lambda: parity.main(["--reference-npz", "gen.npz"]),
+                 lambda: import_chainer.main(["--gen-npz", "gen.npz",
+                                              "--digest"]),
+                 lambda: import_chainer.import_experiment(cfg),
+                 lambda: parity_day.main(["--reference-npz", "gen.npz",
+                                          "--out", str(tmp_path / "pd")]),
                  lambda: PanelRunner(cfg),
                  lambda: i3d.I3DExtractor(None),
                  lambda: fvd.fvd(None, None)):
