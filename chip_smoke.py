@@ -71,7 +71,15 @@ Phases, in order; any failure raises and exits non-zero:
      parity_day at n 256 (import, digest, I3D-FVD against the store
      through one kernel launch, comparator), ours vs reference ~0;
      preprocessing two AVIs where OpenCV is installed;
- 15. print the kernels line, then the result line.
+ 15. the timers of utils/benchmarking.py at full width, TF32 off: mug fp32
+     time_single_step (50 steps, warm-up 6, 3 windows), time_cached_scan
+     (k 16, reps 4, 3 windows) and time_generate at 16 and 64 clips; the
+     bf16 recipe's time_cached_scan (k 16, reps 4, 3 windows); scaled's
+     (train.num_devices=1, k 32, reps 1, 2 windows, 32 clips). Each rate
+     finite and positive, best >= median, one rate a window; each scan
+     launches the kernel k * (1 + reps * windows) times, the other timers
+     never; mug fp32's scan median within 0.5-2x of phase 4's trainer;
+ 16. print the kernels line, then the result line.
 Every training phase prints the card's name and power limit, steps/s and
 the peak of torch.cuda.max_memory_allocated; each variant's kernel
 launches must equal its steps plus its eval-pool launches.
@@ -995,6 +1003,63 @@ def _reference_parity(cfg, run_dir, cfg_cat, run_cat, tmp, dev, smi,
             "parity_day_s": pd_s, "fvd": scores, "i3d_rel_err": i3d_rel}
 
 
+def _timers(sps: float, smi: str, dev) -> dict:
+    """Phase 15: the timers at full width; returns their results and the
+    scans' kernel launches (``launches``)."""
+    from mocogan_tpu_torch import get_config
+    from mocogan_tpu_torch.ops import preproc
+    from mocogan_tpu_torch.utils import benchmarking as bm
+
+    t_phase = time.perf_counter()
+    mug = get_config("mug")
+    bf16 = get_config("mug", **{"model.compute_dtype": "bfloat16",
+                                "train.batch_size": 32,
+                                "train.label_smoothing": 0.1})
+    scaled = get_config("scaled", **{"train.num_devices": 1})
+    # name -> (timer, its arguments, windows, kernel launches it must make)
+    runs = {
+        "mug_fp32_single_step": (bm.time_single_step, (mug, 50, 6, 3), 3, 0),
+        "mug_fp32_cached_scan": (bm.time_cached_scan, (mug, 16, 4, 64, 3), 3,
+                                 16 * (1 + 4 * 3)),
+        "mug_fp32_generate_16": (bm.time_generate, (mug, 16, 10, 3), 3, 0),
+        "mug_fp32_generate_64": (bm.time_generate, (mug, 64, 10, 3), 3, 0),
+        "bf16_recipe_cached_scan": (bm.time_cached_scan,
+                                    (bf16, 16, 4, 64, 3), 3,
+                                    16 * (1 + 4 * 3)),
+        "scaled_cached_scan": (bm.time_cached_scan, (scaled, 32, 1, 32, 2),
+                               2, 32 * (1 + 1 * 2)),
+    }
+    out, launches = {}, 0
+    for what, (timer, args, windows, want) in runs.items():
+        preproc.LAUNCHES["resize_norm"] = 0
+        t0 = time.perf_counter()
+        r = timer(*args, device=dev)
+        took = time.perf_counter() - t0
+        got = preproc.LAUNCHES["resize_norm"]
+        unit = "clips/s" if "generate" in what else "steps/s"
+        print(f"[timers] {smi}: {what} {unit} median {r['median']:.3f}, "
+              f"best {r['best']:.3f}, windows {r['windows']}; kernel "
+              f"launches {got}; {took:.1f} s")
+        if not (all(math.isfinite(x) and x > 0 for x in
+                    (r["best"], r["median"], *r["windows"]))
+                and r["best"] >= r["median"]
+                and len(r["windows"]) == windows):
+            raise AssertionError(f"timer {what}: {r}")
+        if got != want:
+            raise AssertionError(f"timer {what}: {got} kernel launches, "
+                                 f"want {want}")
+        out[what] = {**r, "seconds": took}
+        launches += got
+    ratio = out["mug_fp32_cached_scan"]["median"] / sps
+    print(f"[timers] mug fp32 scan median / phase 4's trainer {sps:.3f} "
+          f"steps/s = {ratio:.3f} (must lie in 0.5-2); phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if not 0.5 <= ratio <= 2.0:
+        raise AssertionError(f"mug fp32 scan median {ratio:.3f} x phase 4's "
+                             f"steps/s")
+    return {**out, "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -1009,8 +1074,8 @@ def main() -> int:
     import numpy as np
 
     from mocogan_tpu_torch import eval_fvd as eval_fvd_cli
-    from mocogan_tpu_torch import generate as generate_cli
     from mocogan_tpu_torch import get_config
+    from mocogan_tpu_torch import sample as sample_cli
     from mocogan_tpu_torch.data import clips, synthetic
     from mocogan_tpu_torch.eval import i3d, parity
     from mocogan_tpu_torch.eval.panel import PanelRunner
@@ -1203,7 +1268,7 @@ def main() -> int:
                             if kk.startswith("loss")}))
 
         # sample from the checkpoint with the generate CLI
-        grid, vids_cli = generate_cli.main(
+        grid, vids_cli = sample_cli.main(
             ["--config", "mug", "--run-dir", run_hf, "--n", "16", "--seed",
              "5", "--out", os.path.join(run_hf, "grid.gif")])
         if not (os.path.getsize(grid) > 0
@@ -1345,7 +1410,7 @@ def main() -> int:
                 "data.device_cache": False, "train.checkpoint_every": k}),
             run_cat_hf, dev, 1, smi, host_fed=True)
         labels = list(range(cfg_cat.model.n_classes))
-        grid, vids_cat = generate_cli.main(
+        grid, vids_cat = sample_cli.main(
             ["--config", "categorical", "--run-dir", run_cat_hf, "--n",
              str(len(labels)), "--seed", "5", "--labels",
              *map(str, labels), "--out", os.path.join(run_cat_hf, "g.gif")])
@@ -1479,7 +1544,10 @@ def main() -> int:
         ref = _reference_parity(cfg, run_hf, cfg_cat, run_cat_hf, tmp, dev,
                                 smi)
 
-    # ---- 15. result --------------------------------------------------------
+    # ---- 15. the timers ------------------------------------------------------
+    timers = _timers(sps, smi, dev)
+
+    # ---- 16. result --------------------------------------------------------
     variants = {"categorical_cached": v_cat, "categorical_host_fed": v_cat_hf,
                 "sequential": v_seq, "bf16": v_bf, "scaled": v_sc,
                 "scaled_no_remat": v_sc_nr}
@@ -1489,6 +1557,7 @@ def main() -> int:
                **{kk: v["launches"] for kk, v in variants.items()},
                "data_parallel": dp["launches"],
                "parity_day": ref["launches"],
+               "timers": timers.pop("launches"),
                "eval_pool": ev_dc + ev_hf + ev_r + ev_cli + sum(
                    v["eval_pool"] for v in variants.values())}
     print(json.dumps({"kernels": [{
@@ -1508,7 +1577,7 @@ def main() -> int:
     print(json.dumps({"variants": variants, "data_parallel": {
         kk: v for kk, v in dp.items() if kk not in ("layout", "launches")},
         "reference_parity": {kk: v for kk, v in ref.items()
-                             if kk != "launches"}}))
+                             if kk != "launches"}, "timers": timers}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -3,13 +3,15 @@ checkpoint, sample N clips from a seed and write them as a GIF grid (a
 ``.npy`` of the grid where PIL is missing), optionally one GIF per clip and
 an mp4.
 
-    python -m mocogan_tpu_torch.generate --config toy --run-dir runs/toy \\
+    python -m mocogan_tpu_torch.sample --config toy --run-dir runs/toy \\
         --n 16 --seed 7
-    python -m mocogan_tpu_torch.generate --config categorical \\
+    python -m mocogan_tpu_torch.sample --config categorical \\
         --run-dir runs/categorical --n 4 --labels 0 1 2 3
 
 The noise is drawn on the host, so a seed gives the same clips on the card
-and on the CPU (``--device cpu``) up to fp32 rounding.
+and on the CPU (``--device cpu``) up to fp32 rounding. The CLI is not
+named ``generate``: the package's top-level ``generate`` is the sampling
+function, and importing a submodule of that name would replace it.
 """
 
 from __future__ import annotations

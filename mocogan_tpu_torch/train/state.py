@@ -90,3 +90,10 @@ def create(cfg: ExperimentConfig, seed: Optional[int] = None,
     check_replicated(state, mesh)
     return state
 
+
+def param_count(state: TrainState) -> Dict[str, int]:
+    """Trainable parameters per net, as the JAX package counts its params
+    tree: BN running statistics are buffers and do not count."""
+    return {name: sum(p.numel() for p in net.parameters())
+            for name, net in state.nets.items()}
+

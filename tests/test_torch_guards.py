@@ -59,14 +59,14 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 
 def test_entry_points_refuse_a_missing_gpu(monkeypatch, tmp_path):
-    from mocogan_tpu_torch import eval_fvd, generate, get_config, parity_day
+    from mocogan_tpu_torch import eval_fvd, get_config, parity_day, sample
     from mocogan_tpu_torch.eval import fvd, i3d, import_chainer, parity
     from mocogan_tpu_torch.eval.panel import PanelRunner
     from mocogan_tpu_torch.parallel import mesh
     from mocogan_tpu_torch.train import state
     from mocogan_tpu_torch.train.__main__ import main as train_main
     from mocogan_tpu_torch.train.loop import Trainer
-    from mocogan_tpu_torch.utils import profiling
+    from mocogan_tpu_torch.utils import benchmarking, profiling
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_config("toy")
@@ -83,7 +83,7 @@ def test_entry_points_refuse_a_missing_gpu(monkeypatch, tmp_path):
                                      "--num-devices", "2"]),
                  lambda: mesh.make_mesh(),
                  lambda: mesh.make_mesh(device="cuda:1"),
-                 lambda: generate.main(["--run-dir", str(tmp_path)]),
+                 lambda: sample.main(["--run-dir", str(tmp_path)]),
                  lambda: eval_fvd.main(["--run-dir", str(tmp_path)]),
                  lambda: parity.main([]),
                  lambda: parity.main(["--reference-npz", "gen.npz"]),
@@ -94,6 +94,9 @@ def test_entry_points_refuse_a_missing_gpu(monkeypatch, tmp_path):
                                           "--out", str(tmp_path / "pd")]),
                  lambda: PanelRunner(cfg),
                  lambda: i3d.I3DExtractor(None),
-                 lambda: fvd.fvd(None, None)):
+                 lambda: fvd.fvd(None, None),
+                 lambda: benchmarking.time_single_step(cfg),
+                 lambda: benchmarking.time_cached_scan(cfg),
+                 lambda: benchmarking.time_generate(cfg, 4)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -284,7 +284,7 @@ def test_train_cli_resumes_unless_told_not_to(toy_run, capsys):
 
 
 def test_generate_cli(toy_run, tmp_path, monkeypatch):
-    from mocogan_tpu_torch.generate import main
+    from mocogan_tpu_torch.sample import main
 
     args = ["--config", "toy", "--run-dir", toy_run, "--device", "cpu",
             "--n", "3", "--seed", "3", "--set", *SET]
