@@ -64,7 +64,7 @@ Phases, in order; any failure raises and exits non-zero:
      biases), import it on the card and hold every parameter and BN
      buffer bit-equal to the source (the deconv weights equal to the
      npz's dc{i}/W), and generate(seed=3), D_I and D_V logits (and the
-     class head) bit-equal under cudnn.deterministic; the parity CLI's
+     class head) bit-equal; the parity CLI's
      --reference-npz and --run-dir digests and the import CLI's equal;
      the TF-less converter raising ImportError; a Sonnet-shaped I3D
      variable set through convert_variables, its logits card vs CPU;
@@ -79,12 +79,24 @@ Phases, in order; any failure raises and exits non-zero:
      finite and positive, best >= median, one rate a window; each scan
      launches the kernel k * (1 + reps * windows) times, the other timers
      never; mug fp32's scan median within 0.5-2x of phase 4's trainer;
- 16. print the kernels line, then the result line.
+ 16. determinism: the train CLI (mug fp32, seed 5, 48 steps, TF32 as the
+     CLI leaves it) in two fresh processes device-cached and two host-fed,
+     and one trained to step 32 then resumed to 48 in a third process,
+     side by side on the card: each pair's loss records in log.jsonl and
+     the sha256 of every entry of their step-48 checkpoints (params, BN
+     stats, Adam moments) equal, compare_runs' nabc 0.0 for every loss
+     key; then, in this process with TF32 off, two calls from equal
+     states of the sequential order, the categorical model, the bf16
+     recipe (k 16 each) and scaled (k 32, remat): metrics and every state
+     tensor bit-equal; the kernel's launches in these calls = 2 x k each;
+ 17. print the kernels line, then the result line.
 Every training phase prints the card's name and power limit, steps/s and
 the peak of torch.cuda.max_memory_allocated; each variant's kernel
 launches must equal its steps plus its eval-pool launches.
-fp32 runs in full fp32: TF32 is switched off for matmuls and cuDNN.
-generate() runs under cudnn.deterministic, so two calls are bit-equal.
+fp32 runs in full fp32: TF32 is switched off for matmuls and cuDNN, except
+in phase 16's train CLI runs. Every conv pass takes a route that repeats
+bit for bit (ops/layers.py), so two generate() calls are bit-equal and
+training repeats from its seed without cudnn.deterministic.
 """
 
 from __future__ import annotations
@@ -116,6 +128,8 @@ DP_TIMEOUT_S = 300      # the spawned gloo ranks, start to end
 BF16_LOGIT_TOL = 5e-2
 TRAIN_CALLS = 5         # trainer calls of k = 16 steps; the first warms up
 HOST_FED_CALLS = 3      # host-fed calls of k = 16 steps before the resume
+DET_STEPS = 48          # each train-CLI run of phase 16 (3 calls of 16)
+DET_SEED = 5
 EVAL_CLIPS = 256        # the panel's clip budget (train.eval_clips)
 PANEL_KEYS = ("fvd_proxy", "gen_spread_ratio", "acd_gen", "acd_real",
               "gen_pairwise_ssim", "dv_margin", "fvd_proxy_dim")
@@ -477,17 +491,76 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _train_cli(args, out_dir, env=None) -> list:
-    """Run the train CLI in a process of its own; its log records."""
-    p = subprocess.run([sys.executable, "-m", "mocogan_tpu_torch.train",
-                        *args, "--out-dir", out_dir], cwd=ROOT,
-                       capture_output=True, text=True, timeout=300,
-                       env={**os.environ, **(env or {})})
-    if p.returncode:
-        raise AssertionError(f"train CLI {args}: rc {p.returncode}\n"
-                             f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+def _start_cli(args, out_dir, env=None):
+    """Start the train CLI in a process of its own, its output to a file in
+    `out_dir`."""
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "cli.out"), "w") as out:
+        return subprocess.Popen(
+            [sys.executable, "-m", "mocogan_tpu_torch.train", *args,
+             "--out-dir", out_dir], cwd=ROOT, stdout=out,
+            stderr=subprocess.STDOUT, env={**os.environ, **(env or {})})
+
+
+def _finish_cli(p, args, out_dir) -> list:
+    """Wait for a train CLI process (killed after 300 s); its log
+    records."""
+    try:
+        rc = p.wait(timeout=300)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.wait()
+        rc = "timeout"
+    if rc:
+        with open(os.path.join(out_dir, "cli.out")) as f:
+            tail = f.read()[-6000:]
+        raise AssertionError(f"train CLI {args}: rc {rc}\n{tail}")
     with open(os.path.join(out_dir, "log.jsonl")) as f:
         return [json.loads(line) for line in f]
+
+
+def _train_cli(args, out_dir, env=None) -> list:
+    """Run the train CLI in a process of its own; its log records."""
+    return _finish_cli(_start_cli(args, out_dir, env), args, out_dir)
+
+
+def _loss_records(run_dir) -> list:
+    """[(step, {loss key: value})] of a run's log.jsonl."""
+    with open(os.path.join(run_dir, "log.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    return [(r["step"], {kk: v for kk, v in r.items()
+                         if kk.startswith("loss")})
+            for r in recs if any(kk.startswith("loss") for kk in r)]
+
+
+def _same_runs(run_a, run_b, step: int) -> dict:
+    """Raise unless two run dirs repeat each other bit for bit: equal loss
+    records in log.jsonl, equal sha256 of every tensor (and every other
+    entry) of their step-`step` checkpoints, and the port's compare_runs
+    reading nabc 0.0 for every loss key. Returns what was compared."""
+    from mocogan_tpu_torch.eval import compare_runs
+    from mocogan_tpu_torch.utils import checkpoint
+
+    recs = [_loss_records(r) for r in (run_a, run_b)]
+    if not recs[0] or recs[0] != recs[1]:
+        raise AssertionError(f"loss records of {run_a} and {run_b} differ")
+    dig = [checkpoint.digests(os.path.join(r, "checkpoints", str(step),
+                                           "state.pt"))
+           for r in (run_a, run_b)]
+    bad = sorted(kk for kk in dig[0].keys() | dig[1].keys()
+                 if dig[0].get(kk) != dig[1].get(kk))
+    if bad:
+        raise AssertionError(f"step-{step} checkpoints of {run_a} and "
+                             f"{run_b} differ in {len(bad)} entries: "
+                             f"{bad[:6]}")
+    rep = compare_runs.compare(*[compare_runs.load_log(
+        os.path.join(r, "log.jsonl")) for r in (run_a, run_b)])
+    nabc = {kk: v.get("nabc") for kk, v in rep["keys"].items()}
+    if not nabc or any(v != 0.0 for v in nabc.values()):
+        raise AssertionError(f"compare_runs {run_a} vs {run_b}: nabc "
+                             f"{nabc}")
+    return {"records": len(recs[0]), "checkpoint_entries": len(dig[0]),
+            "nabc": nabc}
 
 
 def _close(got: dict, want: dict, what: str) -> float:
@@ -794,7 +867,6 @@ def _reference_parity(cfg, run_dir, cfg_cat, run_cat, tmp, dev, smi,
     from mocogan_tpu_torch.eval import parity
     from mocogan_tpu_torch.models import discriminators, generator
     from mocogan_tpu_torch.ops import preproc
-    from mocogan_tpu_torch.utils.platform import cudnn_deterministic
 
     dev_args = [] if dev.type == "cuda" else ["--device", "cpu"]
     t_phase = time.perf_counter()
@@ -844,7 +916,7 @@ def _reference_parity(cfg, run_dir, cfg_cat, run_cat, tmp, dev, smi,
 
     def outputs(state, labels=None):
         nets = state.nets
-        with cudnn_deterministic(), torch.no_grad():
+        with torch.no_grad():
             out = {"generate": generator.generate(nets["gen"], 4, seed=3,
                                                   labels=labels),
                    "di": discriminators.image_apply(
@@ -874,8 +946,7 @@ def _reference_parity(cfg, run_dir, cfg_cat, run_cat, tmp, dev, smi,
     lab = torch.tensor([0, 5, 2, 3])
     checked_cat = same(outputs(imp_cat, lab), outputs(src_cat, lab),
                        "categorical")
-    print(f"[reference parity] {smi}: under cudnn.deterministic, imported "
-          f"vs source bit-equal: mug {checked} (generate(seed=3) of 4 "
+    print(f"[reference parity] {smi}: imported vs source bit-equal: mug {checked} (generate(seed=3) of 4 "
           f"clips, D_I on the 128 frames and D_V on 8 fixed clips); "
           f"categorical step {src_cat.step} {checked_cat} (labels "
           f"{lab.tolist()}, fc_cls)")
@@ -1058,6 +1129,123 @@ def _timers(sps: float, smi: str, dev) -> dict:
         raise AssertionError(f"mug fp32 scan median {ratio:.3f} x phase 4's "
                              f"steps/s")
     return {**out, "launches": launches}
+
+
+def _determinism(store, cat_dir, sc_dir, pool, lengths, smi, dev,
+                 tmp) -> dict:
+    """Phase 16: training repeats bit for bit from its seed. Two fresh
+    train-CLI processes per mode (mug fp32, device-cached and host-fed,
+    DET_STEPS steps, one seed, TF32 as the CLI leaves it) and a run
+    resumed from step 32, side by side on the card, then compared by
+    ``_same_runs``; two calls each, from equal states, of the sequential
+    order, the categorical model, the bf16 recipe and `scaled` in this
+    process. Returns the comparisons and the in-process ingest launches
+    (``launches``)."""
+    import torch
+
+    from mocogan_tpu_torch import get_config
+    from mocogan_tpu_torch.data import clips
+    from mocogan_tpu_torch.ops import preproc
+    from mocogan_tpu_torch.train import state as train_state
+    from mocogan_tpu_torch.train import step as train_step
+
+    t_phase = time.perf_counter()
+    k = get_config("mug").train.steps_per_call
+
+    def args(steps, *extra):
+        return ["--config", "mug", "--data-dir", store, "--seed",
+                str(DET_SEED), "--total-steps", str(steps),
+                "--set", f"train.log_every={k}",
+                f"train.checkpoint_every={k}", *extra]
+
+    jobs = {"cached_a": args(DET_STEPS), "cached_b": args(DET_STEPS),
+            "host_fed_a": args(DET_STEPS, "data.device_cache=false"),
+            "host_fed_b": args(DET_STEPS, "data.device_cache=false"),
+            "resumed": args(DET_STEPS - k)}
+    dirs = {name: os.path.join(tmp, f"det_{name}") for name in jobs}
+    procs = {name: _start_cli(a, dirs[name]) for name, a in jobs.items()}
+    # the resumed run's second process starts when its first one ends
+    _finish_cli(procs.pop("resumed"), jobs["resumed"], dirs["resumed"])
+    rest = _start_cli(args(DET_STEPS), dirs["resumed"])
+    for name, p in procs.items():
+        _finish_cli(p, jobs[name], dirs[name])
+    _finish_cli(rest, args(DET_STEPS), dirs["resumed"])
+    cli = {"device_cached": _same_runs(dirs["cached_a"], dirs["cached_b"],
+                                       DET_STEPS),
+           "host_fed": _same_runs(dirs["host_fed_a"], dirs["host_fed_b"],
+                                  DET_STEPS),
+           "resumed_vs_straight": _same_runs(dirs["resumed"],
+                                             dirs["cached_a"], DET_STEPS)}
+    cli_s = time.perf_counter() - t_phase
+    for what, r in cli.items():
+        print(f"[determinism] {smi}: train CLI mug fp32 {what}, seed "
+              f"{DET_SEED}, {DET_STEPS} steps: {r['records']} loss records "
+              f"and {r['checkpoint_entries']} checkpoint entries bit-equal; "
+              f"compare_runs nabc " + json.dumps(r["nabc"]))
+
+    pool_cat, lengths_cat, labels_cat = clips.load_pool(cat_dir)
+    pool_sc, lengths_sc, _ = clips.load_pool(sc_dir)
+    variants = {
+        "sequential": (get_config("mug", **{
+            "train.update_order": "sequential"}), pool, lengths, None),
+        "categorical": (get_config("categorical"),
+                        torch.from_numpy(pool_cat).to(dev),
+                        torch.from_numpy(lengths_cat),
+                        torch.from_numpy(labels_cat)),
+        "bf16": (get_config("mug", **{
+            "train.batch_size": 32, "model.compute_dtype": "bfloat16",
+            "train.label_smoothing": 0.1}), pool, lengths, None),
+        "scaled": (get_config("scaled", **{"train.num_devices": 1}),
+                   torch.from_numpy(pool_sc).to(dev),
+                   torch.from_numpy(lengths_sc), None),
+    }
+    del pool_cat, pool_sc
+    preproc.LAUNCHES["resize_norm"] = 0
+    want, out = 0, {}
+    for what, (cfg, pool_, lengths_, labels_) in variants.items():
+        t0 = time.perf_counter()
+        kv = cfg.train.steps_per_call
+        rh, rw = preproc.resize_weights(pool_.shape[2], pool_.shape[3],
+                                        cfg.model.image_size, dev)
+        runs = []
+        for _ in range(2):
+            st = train_state.create(cfg, device=dev)
+            m = train_step.cached_multi_train_step(st, pool_, lengths_, kv,
+                                                   rh, rw, labels=labels_)
+            runs.append((m, [t.clone() for t in
+                             train_state.state_tensors(st)]))
+            del st
+        (m1, t1), (m2, t2) = runs
+        if set(m1) != set(m2) or not all(torch.equal(m1[kk], m2[kk])
+                                         for kk in m1):
+            raise AssertionError(f"{what}: metrics of two calls differ: "
+                                 f"{m1} vs {m2}")
+        bad = [i for i, (a, b) in enumerate(zip(t1, t2))
+               if not torch.equal(a, b)]
+        if len(t1) != len(t2) or bad:
+            raise AssertionError(f"{what}: {len(bad)} of {len(t1)} state "
+                                 f"tensors differ between two calls")
+        want += 2 * kv
+        out[what] = {"k": kv, "state_tensors": len(t1),
+                     "seconds": time.perf_counter() - t0}
+        print(f"[determinism] {smi}: {what} ({cfg.model.compute_dtype}, "
+              f"remat {cfg.model.remat}, {cfg.train.update_order}, batch "
+              f"{cfg.train.batch_size}), two calls of k {kv} from equal "
+              f"states, TF32 off: metrics and {len(t1)} state tensors "
+              f"(params, BN stats, Adam moments) bit-equal; "
+              f"{out[what]['seconds']:.1f} s")
+        del runs, t1, t2
+    del variants
+    launches = preproc.LAUNCHES["resize_norm"]
+    if launches != want:
+        raise AssertionError(f"determinism: {launches} kernel launches, "
+                             f"want {want}")
+    secs = time.perf_counter() - t_phase
+    print(f"[determinism] {smi}: ingest kernel launches {launches} (the "
+          f"in-process calls); train CLI runs {cli_s:.1f} s; phase took "
+          f"{secs:.1f} s")
+    return {"cli": cli, "variants": out, "launches": launches,
+            "cli_seconds": cli_s, "seconds": secs}
 
 
 def main() -> int:
@@ -1375,8 +1563,7 @@ def main() -> int:
             raise AssertionError("two generate() calls differ")
         print(f"[parity] deterministic: true twice, record matches "
               f"({reps[1]['digest'][:12]}); two generate() calls outside "
-              f"the parity CLI bit-equal (generate runs under "
-              f"cudnn.deterministic)")
+              f"the parity CLI bit-equal")
 
         # ---- 8. generate ---------------------------------------------------------
         vids = generator.generate(g, 16, seed=1)
@@ -1544,10 +1731,14 @@ def main() -> int:
         ref = _reference_parity(cfg, run_hf, cfg_cat, run_cat_hf, tmp, dev,
                                 smi)
 
-    # ---- 15. the timers ------------------------------------------------------
-    timers = _timers(sps, smi, dev)
+        # ---- 15. the timers --------------------------------------------------
+        timers = _timers(sps, smi, dev)
 
-    # ---- 16. result --------------------------------------------------------
+        # ---- 16. determinism -------------------------------------------------
+        det = _determinism(cfg.data.data_dir, cat_dir, sc_dir, pool, lengths,
+                           smi, dev, tmp)
+
+    # ---- 17. result --------------------------------------------------------
     variants = {"categorical_cached": v_cat, "categorical_host_fed": v_cat_hf,
                 "sequential": v_seq, "bf16": v_bf, "scaled": v_sc,
                 "scaled_no_remat": v_sc_nr}
@@ -1558,6 +1749,7 @@ def main() -> int:
                "data_parallel": dp["launches"],
                "parity_day": ref["launches"],
                "timers": timers.pop("launches"),
+               "determinism": det.pop("launches"),
                "eval_pool": ev_dc + ev_hf + ev_r + ev_cli + sum(
                    v["eval_pool"] for v in variants.values())}
     print(json.dumps({"kernels": [{
@@ -1577,7 +1769,8 @@ def main() -> int:
     print(json.dumps({"variants": variants, "data_parallel": {
         kk: v for kk, v in dp.items() if kk not in ("layout", "launches")},
         "reference_parity": {kk: v for kk, v in ref.items()
-                             if kk != "launches"}, "timers": timers}))
+                             if kk != "launches"}, "timers": timers,
+        "determinism": det}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

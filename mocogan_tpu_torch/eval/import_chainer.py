@@ -604,11 +604,8 @@ def main(argv=None) -> dict:
     if args.digest and "gen" in reports:
         from mocogan_tpu_torch.eval.parity import video_digest
         from mocogan_tpu_torch.models import generator
-        from mocogan_tpu_torch.utils.platform import cudnn_deterministic
 
-        with cudnn_deterministic():
-            vids = generator.generate(state.nets["gen"], args.n,
-                                      seed=args.seed)
+        vids = generator.generate(state.nets["gen"], args.n, seed=args.seed)
         digest = video_digest(vids)
         print(f"generate() digest (n={args.n}, seed={args.seed}): {digest}")
     return {"reports": reports, "digest": digest}

@@ -15,6 +15,11 @@ which is what ``bridge.py`` uses. What differs from the obvious torch call:
     fp32, eps 2e-5, affine ``x*inv + shift``, running stats
     ``0.9*old + 0.1*batch``. ``nn.BatchNorm`` keeps the unbiased variance
     and uses eps 1e-5.
+  * Every conv pass repeats bit for bit on the card, with no global flag
+    (``_Conv``): the forward runs cuDNN's forward algorithms, the data
+    gradient (and a transposed conv's forward) ``_dgrad``'s route, the
+    weight gradient cuDNN's deterministic algorithm scoped to that call.
+    The bias is added after the conv in every dtype.
   * Compute dtype (``dtype``, fp32 or bf16): the input and the weight are
     cast where the JAX package's ``_cast`` casts them; params stay fp32.
     JAX adds a bias *after* the conv or product, so under bf16 a layer
@@ -28,6 +33,7 @@ biases, drawn on the CPU from an explicit ``torch.Generator``.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -36,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mocogan_tpu_torch.parallel.mesh import Mesh, all_reduce_mean
+from mocogan_tpu_torch.utils.platform import cudnn_deterministic
 
 _W_STD = 0.02
 BN_MOMENTUM = 0.9
@@ -69,22 +76,178 @@ def _add_bias(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return y + b.view((1, -1) + (1,) * (y.ndim - 2))
 
 
-def _conv_same(fn, x: torch.Tensor, w: torch.Tensor,
-               b: Optional[torch.Tensor], stride: Sequence[int],
-               dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    x, w = _cast(x, dtype), _cast(w, dtype)
-    # fp32 lets the conv add the bias; otherwise it is added after, in fp32
-    b_in, b_after = (b, None) if dtype == torch.float32 else (None, b)
-    pads = [same_pads(x.shape[2 + i], w.shape[2 + i], s)
-            for i, s in enumerate(stride)]
+def _flat_pads(pads: Sequence[Tuple[int, int]]) -> list:
+    """(lo, hi) per spatial dim -> ``F.pad``'s list, last dim first."""
+    return [p for lo, hi in reversed(pads) for p in (lo, hi)]
+
+
+def _padded(x: torch.Tensor, pads: Sequence[Tuple[int, int]]):
+    """(x, padding) for ``torch.convolution``: symmetric pads go to the
+    conv, asymmetric ones are applied to x first."""
     if all(lo == hi for lo, hi in pads):
-        y = fn(x, w, b_in, stride=tuple(stride),
-               padding=tuple(lo for lo, _ in pads))
-    else:
-        # F.pad lists pads from the last dim backwards
-        flat = [p for lo, hi in reversed(pads) for p in (lo, hi)]
-        y = fn(F.pad(x, flat), w, b_in, stride=tuple(stride))
-    return y if b_after is None else _add_bias(y, b_after)
+        return x, [lo for lo, _ in pads]
+    return F.pad(x, _flat_pads(pads)), [0] * len(pads)
+
+
+def _conv_fwd(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
+              pads: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """y = conv(pad(x), w, stride), cuDNN's default forward algorithm:
+    forward algorithms use no atomics, so it repeats bit for bit."""
+    x, padding = _padded(x, pads)
+    nd = len(stride)
+    return torch.convolution(x, w, None, list(stride), padding, [1] * nd,
+                             False, [0] * nd, 1)
+
+
+def _crop(t: torch.Tensor, pads: Sequence[Tuple[int, int]],
+          size: Sequence[int]) -> torch.Tensor:
+    """t[..., lo:lo + n] over the spatial dims: pad(x)'s gradient -> x's."""
+    return t[(slice(None), slice(None),
+              *[slice(lo, lo + n) for (lo, _), n in zip(pads, size)])]
+
+
+def _backward_cudnn(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                    stride: Sequence[int], padding: Sequence[int],
+                    data: bool) -> torch.Tensor:
+    """cuDNN's data (`data`) or weight gradient of y = conv(x, w, stride,
+    padding) from its deterministic algorithms, picked by its heuristics
+    (no benchmarking, so every process picks the same one). For the data
+    gradient only x's shape is read."""
+    nd = len(stride)
+    with cudnn_deterministic():
+        g = torch.ops.aten.convolution_backward(
+            dy, x, w, None, list(stride), list(padding), [1] * nd, False,
+            [0] * nd, 1, [data, not data, False])
+    return g[0] if data else g[1]
+
+
+def _wgrad(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
+           stride: Sequence[int], pads: Sequence[Tuple[int, int]]
+           ) -> torch.Tensor:
+    """The weight gradient of y = conv(pad(x), w, stride)."""
+    x, padding = _padded(x, pads)
+    return _backward_cudnn(dy, x, w, stride, padding, data=False)
+
+
+def _dgrad_subpixel(dy: torch.Tensor, w: torch.Tensor,
+                    stride: Sequence[int], pads: Sequence[Tuple[int, int]],
+                    size: Sequence[int]) -> torch.Tensor:
+    """The data gradient of y = conv(pad(x), w, stride) for x of spatial
+    `size`, as ONE stride-1 forward convolution and an interleave.
+
+    Along a dim of stride s, kernel k and low pad lo, input position i
+    (j = i + lo = q*s + r) receives dy[q - u] * w[r + s*u] for u < U =
+    ceil(k/s): each phase r is a U-tap correlation of dy. The s phases of
+    every dim become output channels of one conv with kernel U (the taps
+    of w, zero-padded to U*s, regrouped and flipped), whose outputs are
+    interleaved back and cropped to [lo, lo + n). Same FLOPs as the data
+    gradient, plus one row of outputs per phase and dim where lo is not a
+    multiple of s."""
+    nd = len(stride)
+    o, ci = w.shape[:2]
+    ks = w.shape[2:]
+    us = [-(-k // s) for k, s in zip(ks, stride)]
+    wp = F.pad(w, [p for k, s, u in zip(reversed(ks), reversed(stride),
+                                        reversed(us)) for p in (0, u * s - k)])
+    wp = wp.reshape(o, ci, *[d for u, s in zip(us, stride) for d in (u, s)])
+    wp = wp.flip([2 + 2 * d for d in range(nd)])
+    wp = wp.permute(1, *[3 + 2 * d for d in range(nd)], 0,
+                    *[2 + 2 * d for d in range(nd)])
+    wp = wp.reshape(ci * math.prod(stride), o, *us)
+    qs = [-(-(lo + n) // s) for (lo, _), n, s in zip(pads, size, stride)]
+    z = _conv_fwd(dy, wp, [1] * nd,
+                  [(u - 1, q - m) for u, q, m in zip(us, qs, dy.shape[2:])])
+    z = z.view(dy.shape[0], ci, *stride, *qs)
+    z = z.permute(0, 1, *[a for d in range(nd) for a in (2 + nd + d, 2 + d)])
+    z = z.reshape(dy.shape[0], ci, *[q * s for q, s in zip(qs, stride)])
+    return _crop(z, pads, size)
+
+
+def _dgrad_cudnn(dy: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
+                 pads: Sequence[Tuple[int, int]], size: Sequence[int]
+                 ) -> torch.Tensor:
+    """The data gradient of y = conv(pad(x), w, stride) for x of spatial
+    `size`, from cuDNN's deterministic backward-data algorithms; with
+    asymmetric pads, of pad(x), cropped."""
+    sym = all(lo == hi for lo, hi in pads)
+    full = size if sym else [n + lo + hi for n, (lo, hi) in zip(size, pads)]
+    x = dy.new_empty(1).expand(dy.shape[0], w.shape[1], *full)
+    g = _backward_cudnn(dy, x, w, stride,
+                        [lo if sym else 0 for lo, _ in pads], data=True)
+    return g if sym else _crop(g, pads, size)
+
+
+_FEW_CHANNELS = 4   # data gradients onto the frames (RGB) and alike
+
+
+def _dgrad(dy: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
+           pads: Sequence[Tuple[int, int]], size: Sequence[int]
+           ) -> torch.Tensor:
+    """The data gradient of y = conv(pad(x), w, stride) for x of spatial
+    `size`; also the forward of a transposed conv. Where cuDNN computes it
+    on tensor cores (bf16, or fp32 with cuDNN's TF32 allowed), its
+    deterministic algorithms are as fast as its default ones, and take it.
+    On CUDA cores (fp32 without TF32) they are 13-34x slower than the
+    default in 3-D, so the sub-pixel forward conv takes it; so it does
+    onto few channels (the frames' RGB: D_V's and D_I's first convs, G's
+    last transposed conv), where it is 1.2-29x faster than the
+    deterministic algorithm for D_V and G in every precision
+    (``utils/conv_audit.py`` measured both on an H100)."""
+    tensor_cores = dy.dtype == torch.bfloat16 or (
+        dy.dtype == torch.float32 and torch.backends.cudnn.allow_tf32)
+    if tensor_cores and w.shape[1] > _FEW_CHANNELS:
+        return _dgrad_cudnn(dy, w, stride, pads, size)
+    return _dgrad_subpixel(dy, w, stride, pads, size)
+
+
+class _Conv(torch.autograd.Function):
+    """A SAME conv, or (given its output `size`) the transposed conv that
+    is a conv's data gradient, with every pass on a route that repeats bit
+    for bit from the same inputs:
+
+      * a conv's forward and a transposed conv's data gradient: cuDNN's
+        forward algorithm (``_conv_fwd``);
+      * a conv's data gradient and a transposed conv's forward:
+        ``_dgrad``;
+      * either weight gradient: cuDNN's deterministic backward-filter
+        algorithm (``_wgrad``); a transposed conv's is the conv's, with
+        its output gradient as the conv's input.
+
+    cuDNN reads its flags when each kernel is launched, which is why the
+    routes live in the backward itself. `pads` are the conv's (lo, hi) per
+    spatial dim on its input, which is the transposed conv's output."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, pads, size):
+        ctx.save_for_backward(x, w)
+        ctx.geom = (stride, pads, size)
+        if size is None:
+            return _conv_fwd(x, w, stride, pads)
+        return _dgrad(x, w, stride, pads, size)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        stride, pads, size = ctx.geom
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = (_dgrad(g, w, stride, pads, x.shape[2:]) if size is None
+                  else _conv_fwd(g, w, stride, pads))
+        if ctx.needs_input_grad[1]:
+            dw = (_wgrad(x, g, w, stride, pads) if size is None
+                  else _wgrad(g, x, w, stride, pads))
+        return dx, dw, None, None, None
+
+
+def _conv_same(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+               stride: Sequence[int], dtype: torch.dtype = torch.float32
+               ) -> torch.Tensor:
+    x, w = _cast(x, dtype), _cast(w, dtype)
+    pads = tuple(same_pads(x.shape[2 + i], w.shape[2 + i], s)
+                 for i, s in enumerate(stride))
+    y = _Conv.apply(x, w, tuple(stride), pads, None)
+    return y if b is None else _add_bias(y, b)
 
 
 def dense(x: torch.Tensor, w: torch.Tensor,
@@ -99,30 +262,29 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
            stride: int = 2, dtype: torch.dtype = torch.float32
            ) -> torch.Tensor:
     """x (N, C, H, W), w (O, I, k, k), SAME padding."""
-    return _conv_same(F.conv2d, x, w, b, (stride, stride), dtype)
+    return _conv_same(x, w, b, (stride, stride), dtype)
 
 
 def conv3d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
            stride: Tuple[int, int, int], dtype: torch.dtype = torch.float32
            ) -> torch.Tensor:
     """x (N, C, D, H, W), w (O, I, kd, kh, kw), SAME padding."""
-    return _conv_same(F.conv3d, x, w, b, stride, dtype)
+    return _conv_same(x, w, b, stride, dtype)
 
 
 def deconv2d(x: torch.Tensor, w: torch.Tensor,
              b: Optional[torch.Tensor] = None, stride: int = 2,
              dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """SAME transposed conv, output = input * stride. w (I, O, k, k) is the
-    JAX kernel flipped in space (see ``Deconv2d.from_jax``)."""
+    JAX kernel flipped in space (see ``Deconv2d.from_jax``): the weight of
+    the stride-s conv whose data gradient this is, padded (k - s) / 2."""
     k = w.shape[-1]
     if (k - stride) % 2 or k < stride:
         raise ValueError(f"deconv2d needs even k - stride >= 0, got k={k}, "
                          f"stride={stride}")
-    if dtype == torch.float32:
-        return F.conv_transpose2d(x, w, b, stride=stride,
-                                  padding=(k - stride) // 2)
-    y = F.conv_transpose2d(_cast(x, dtype), _cast(w, dtype), None,
-                           stride=stride, padding=(k - stride) // 2)
+    p = (k - stride) // 2
+    y = _Conv.apply(_cast(x, dtype), _cast(w, dtype), (stride, stride),
+                    ((p, p), (p, p)), tuple(n * stride for n in x.shape[2:]))
     return y if b is None else _add_bias(y, b)
 
 

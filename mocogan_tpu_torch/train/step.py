@@ -48,6 +48,7 @@ process group no collective is issued.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
@@ -143,26 +144,45 @@ def _d_losses(state: TrainState, real_cf: torch.Tensor, fake: torch.Tensor,
     return loss_d, metrics
 
 
+@contextlib.contextmanager
+def _constants(nets: Iterable[torch.nn.Module]):
+    """The nets' parameters out of the graph for the block, back after it.
+    L_G's gradient is taken for G alone (JAX differentiates it for G's
+    params only), and the conv layers' autograd Function cannot tell which
+    inputs an ``autograd.grad`` asks for: a D parameter in the graph would
+    make it compute that weight gradient for nothing."""
+    params = [p for net in nets for p in net.parameters()
+              if p.requires_grad]
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p in params:
+            p.requires_grad_(True)
+
+
 def _g_losses(state: TrainState, fake: torch.Tensor, noise: Draws,
               mesh: Optional[Mesh]
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """L_G through the Ds as they are now, in train mode without a BN
-    update."""
+    """L_G through the Ds as they are now (their parameters constants), in
+    train mode without a BN update."""
     cfg = state.cfg
     di, dv = state.nets["di"], state.nets.get("dv")
     metrics: Dict[str, torch.Tensor] = {}
-    loss_g = metrics["loss_gen_di"] = losses.g_loss(di(
-        sampling.sample_frames(fake, noise["i_fake"]), train=True,
-        update=False, mesh=mesh))
-    if dv is not None:
-        g_dv, cls = dv(fake.transpose(1, 2), train=True, update=False,
-                       mesh=mesh)
-        metrics["loss_gen_dv"] = losses.g_loss(g_dv)
-        loss_g = loss_g + metrics["loss_gen_dv"]
-        if cls is not None:
-            aux = metrics["loss_aux_g"] = losses.categorical_loss(
-                cls, noise["labels"])
-            loss_g = loss_g + cfg.train.aux_loss_weight * aux
+    with _constants(state.nets[n] for n in _d_names(state)):
+        loss_g = metrics["loss_gen_di"] = losses.g_loss(di(
+            sampling.sample_frames(fake, noise["i_fake"]), train=True,
+            update=False, mesh=mesh))
+        if dv is not None:
+            g_dv, cls = dv(fake.transpose(1, 2), train=True, update=False,
+                           mesh=mesh)
+            metrics["loss_gen_dv"] = losses.g_loss(g_dv)
+            loss_g = loss_g + metrics["loss_gen_dv"]
+            if cls is not None:
+                aux = metrics["loss_aux_g"] = losses.categorical_loss(
+                    cls, noise["labels"])
+                loss_g = loss_g + cfg.train.aux_loss_weight * aux
     metrics["loss_gen"] = loss_g
     return loss_g, metrics
 

@@ -21,8 +21,8 @@ Traps on the card, and what the timers do about them:
     build would read as a slow first window.
   * Precision is the caller's: a timer leaves the TF32 switches as it finds
     them (``chip_smoke.py`` turns TF32 off, so fp32 is full fp32).
-  * ``generate`` runs under ``cudnn.deterministic``, so ``time_generate``
-    times cuDNN's deterministic algorithms.
+  * ``generate`` runs the deconvs' own deterministic routes
+    (``ops/layers.py``), with no cuDNN flag.
 
 Each timer takes ``device`` (``None`` means ``cuda``; it raises when no GPU
 is visible unless ``device="cpu"``) and builds its state from the config's

@@ -20,11 +20,12 @@ restores the same file.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import shutil
 import time
-from typing import TYPE_CHECKING, List, Optional
+from typing import TYPE_CHECKING, Dict, List, Optional
 
 import torch
 
@@ -141,3 +142,29 @@ class CheckpointManager:
 
     def close(self):
         """Nothing to wait for: saves are synchronous."""
+
+
+def digests(path: str) -> Dict[str, str]:
+    """{key path: sha256} of everything in checkpoint file `path`: every
+    parameter, BN buffer and Adam moment by the bytes of its tensor, the
+    rest (seed, step, hyperparameters) by its repr. Two runs that repeat
+    bit for bit give equal dicts."""
+    out: Dict[str, str] = {}
+
+    def walk(key: str, v) -> None:
+        if isinstance(v, dict):
+            for kk, vv in v.items():
+                walk(f"{key}/{kk}", vv)
+        elif isinstance(v, (list, tuple)):
+            for i, vv in enumerate(v):
+                walk(f"{key}/{i}", vv)
+        elif torch.is_tensor(v):
+            raw = v.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+            out[key] = hashlib.sha256(
+                f"{v.dtype}{tuple(v.shape)}".encode()
+                + raw.numpy().tobytes()).hexdigest()
+        else:
+            out[key] = hashlib.sha256(repr(v).encode()).hexdigest()
+
+    walk("", torch.load(path, map_location="cpu", weights_only=True))
+    return out

@@ -15,6 +15,7 @@ from mocogan_tpu_torch.data import synthetic
 from mocogan_tpu_torch.eval import compare_runs as tcompare
 from mocogan_tpu_torch.eval import parity
 from mocogan_tpu_torch.train import state as tstate
+from mocogan_tpu_torch.utils import platform
 from mocogan_tpu_torch.utils.checkpoint import CheckpointManager
 from mocogan_tpu_torch.utils.metrics import MetricLogger
 from test_torch_step import TINY
@@ -124,7 +125,7 @@ def test_video_digest_is_bit_identity():
 def test_cudnn_context_restores_the_flags():
     cudnn = torch.backends.cudnn
     old = cudnn.deterministic, cudnn.benchmark
-    with parity.cudnn_deterministic():
+    with platform.cudnn_deterministic():
         assert cudnn.deterministic and not cudnn.benchmark
     assert (cudnn.deterministic, cudnn.benchmark) == old
 

@@ -130,3 +130,35 @@ def test_host_fed_steps_launch_the_kernel(cuda):
     m = step.multi_train_step(s, raw)
     assert preproc.LAUNCHES["resize_norm"] == before + 3 and s.step == 3
     assert all(torch.isfinite(v) for v in m.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tf32", [False, True])
+def test_mug_step_gradients_repeat(cuda, tf32):
+    """The mug step's gradients of G, D_I and D_V, taken twice from one state
+    on one batch, are bit-equal, with cuDNN's TF32 off and on (the train
+    CLI leaves it on): every conv pass takes a route that repeats."""
+    from mocogan_tpu_torch import get_config
+    from mocogan_tpu_torch.data import synthetic
+    from mocogan_tpu_torch.train import state as train_state
+    from mocogan_tpu_torch.train import step as train_step
+
+    cfg = get_config("mug")
+    m = cfg.model
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        st = train_state.create(cfg, device=cuda)
+        vids, _ = synthetic.make_batch(0, cfg.train.batch_size,
+                                       t=m.video_length, size=m.image_size)
+        real = torch.from_numpy(vids).to(cuda)
+        noise = train_step.draw_noise(cfg, st.seed, 0, real.shape[0], cuda)
+        (g1, m1), (g2, m2) = [train_step.compute_grads(st, real, noise)
+                              for _ in range(2)]
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+    assert set(g1) == {"gen", "di", "dv"}
+    for net, grads in g1.items():
+        for name, g in grads.items():
+            assert torch.equal(g, g2[net][name]), f"{net}.{name}"
+    assert all(torch.equal(v, m2[k]) for k, v in m1.items())
