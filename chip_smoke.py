@@ -48,16 +48,31 @@ Phases, in order; any failure raises and exits non-zero:
      train.num_devices=1 on a 128 px store: the kernel at its layout (B 64,
      T 32, 128 -> 96 px) against its plain version and timed like the mug
      layout; 2 calls of k = 32 with remat, then 1 call without;
- 13. data parallel: the kernel at the per-rank mug layout (B 8 of 16)
-     against its plain version and timed; two ranks sharing card 0 over
-     gloo, each on its 8 rows of the global batch of 16, under
-     cudnn.deterministic: step 0's metrics, gradients and BN stats and one
-     device-cached call's mean metrics against one process on the global
-     batch, launches = steps on each rank, parameters bit-equal across the
-     ranks; mug steps/s with cudnn.deterministic on and off (alternating
-     calls); a one-rank NCCL world through the train CLI; with two or more
-     cards, two NCCL ranks on two cards through the train CLI (steps/s and
-     clips/s);
+ 13. data parallel: the kernel at the per-rank mug layout (B 8 of 16) and
+     the per-rank scaled layout (B 32 of 64, T 32, 128 -> 96 px) against
+     its plain version and timed; then, side by side on card 0, eight
+     worlds of two gloo ranks each running the train CLI's own main (each
+     rank joins the group, then calls it with --device cuda:0
+     --num-devices 2): mug fp32 device-cached A and B, C to step 32 then
+     resumed to 48 in a fresh world (started with the others; its ranks
+     wait for the first world's end before they call main), a host-fed
+     pair (seed 5, 48 steps, log and checkpoints every 16, TF32 as the
+     CLI leaves it) and a scaled pair (train.num_devices=2: 32 a rank,
+     bf16, remat, one call of the recipe's k 32: one log record, so no
+     nabc), each pair (and C against A) compared by _same_runs, each rank's
+     launches = its world's steps; meanwhile two ranks of the mug step
+     (8 rows each of the global batch of 16) against one process on the
+     global batch: step 0's metrics, gradients and BN stats and one
+     device-cached call's mean metrics, launches = steps on each rank,
+     parameters bit-equal across the ranks. No global deterministic flag
+     anywhere. Then, alone on the card, the scaling dossier
+     (mocogan_tpu_torch/scaling_dossier.py): the collectives of one mug
+     and one scaled step counted by kind, the gradient buckets equal to
+     4 B x param_count, each net's bucket all-reduce timed alone and one
+     step's collectives summed, in the two-rank gloo world and a one-rank
+     NCCL world; with two or more cards, two NCCL ranks on two cards
+     through the train CLI, twice side by side, compared by _same_runs
+     (steps/s and clips/s);
  14. reference parity, on the mug run of phase 5 and the categorical
      run of phase 9: export each to Chainer layout (the mug state also as
      a Trainer snapshot with an optimizer entry, /N counters and pre-BN
@@ -81,11 +96,13 @@ Phases, in order; any failure raises and exits non-zero:
      never; mug fp32's scan median within 0.5-2x of phase 4's trainer;
  16. determinism: the train CLI (mug fp32, seed 5, 48 steps, TF32 as the
      CLI leaves it) in two fresh processes device-cached and two host-fed,
-     and one trained to step 32 then resumed to 48 in a third process,
-     side by side on the card: each pair's loss records in log.jsonl and
-     the sha256 of every entry of their step-48 checkpoints (params, BN
-     stats, Adam moments) equal, compare_runs' nabc 0.0 for every loss
-     key; then, in this process with TF32 off, two calls from equal
+     one trained to step 32 then resumed to 48 in a third process, and two
+     one-rank NCCL worlds in torchrun's environment, side by side on the
+     card: each pair's loss records in log.jsonl and the sha256 of every
+     entry of their step-48 checkpoints (params, BN stats, Adam moments)
+     equal, compare_runs' nabc 0.0 for every loss key, each NCCL run also
+     equal to the plain device-cached one, each process's kernel launches
+     = its steps; then, in this process with TF32 off, two calls from equal
      states of the sequential order, the categorical model, the bf16
      recipe (k 16 each) and scaled (k 32, remat): metrics and every state
      tensor bit-equal; the kernel's launches in these calls = 2 x k each;
@@ -94,9 +111,10 @@ Every training phase prints the card's name and power limit, steps/s and
 the peak of torch.cuda.max_memory_allocated; each variant's kernel
 launches must equal its steps plus its eval-pool launches.
 fp32 runs in full fp32: TF32 is switched off for matmuls and cuDNN, except
-in phase 16's train CLI runs. Every conv pass takes a route that repeats
-bit for bit (ops/layers.py), so two generate() calls are bit-equal and
-training repeats from its seed without cudnn.deterministic.
+in the train CLI runs of phases 13 and 16 and the dossier's ranks. Every
+conv pass takes a route that repeats bit for bit (ops/layers.py), so two
+generate() calls are bit-equal and training repeats from its seed without
+cudnn.deterministic, on one rank and on two.
 """
 
 from __future__ import annotations
@@ -122,6 +140,7 @@ DP_GRAD_TOL = 1e-3      # of each gradient's largest magnitude, or
 DP_FLOOR_FACTOR = 2     # times the one process's own reordering floor
 DP_BN_TOL = 1e-5        # BN running stats, absolute
 DP_TIMEOUT_S = 300      # the spawned gloo ranks, start to end
+DP_CLI_TIMEOUT_S = 600  # phase 13's train-CLI worlds, start to end
 # bf16 D logits, card (cuDNN) vs CPU, of the largest |logit|: both round
 # each conv's output to bf16, and a tie rounded apart is a 2^-8 step that
 # four BN stages pass on
@@ -450,8 +469,8 @@ def _dp_call(cfg, mesh, dev, pool, lengths, rh, rw) -> dict:
 def _dp_rank(rank: int, world: int, store: str, overrides: dict,
              out_dir: str, device: str) -> None:
     """A rank of the gloo world on `device` (``torch.multiprocessing``
-    target): ``_dp_call`` of the mug config with `overrides` on its rows
-    under cudnn.deterministic, saved to <out_dir>/rank<r>.pt."""
+    target): ``_dp_call`` of the mug config with `overrides` on its rows,
+    saved to <out_dir>/rank<r>.pt."""
     sys.path.insert(0, ROOT)
     import torch
 
@@ -459,11 +478,10 @@ def _dp_rank(rank: int, world: int, store: str, overrides: dict,
     from mocogan_tpu_torch.data import clips
     from mocogan_tpu_torch.ops import preproc
     from mocogan_tpu_torch.parallel import mesh as pmesh
-    from mocogan_tpu_torch.utils.platform import cudnn_deterministic
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    torch.set_num_threads(1)       # many worlds share the host's cores
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank))
     dev = torch.device(device)
@@ -475,12 +493,85 @@ def _dp_rank(rank: int, world: int, store: str, overrides: dict,
         pool = torch.from_numpy(pool_np).to(dev)
         rh, rw = preproc.resize_weights(pool.shape[2], pool.shape[3],
                                         cfg.model.image_size, dev)
-        with cudnn_deterministic():
-            out = _dp_call(cfg, mesh, dev, pool,
-                           torch.from_numpy(lengths_np), rh, rw)
+        out = _dp_call(cfg, mesh, dev, pool, torch.from_numpy(lengths_np),
+                       rh, rw)
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         torch.distributed.destroy_process_group()
+
+
+def _cli_rank(rank: int, world: int, store: str, argv: list, out_dir: str,
+              tag: str, device: str, after: list) -> None:
+    """A rank of a gloo world on `device` running the train CLI
+    (``torch.multiprocessing`` target): join the group, wait until every
+    file of `after` exists, then call the CLI's own ``main(argv)``, which
+    finds the world joined and neither spawns nor joins one. Its output
+    goes to <out_dir>/rank<r>_<tag>.out, its ingest-kernel launches to
+    <out_dir>/rank<r>_<tag>.json."""
+    sys.path.insert(0, ROOT)
+    with open(os.path.join(out_dir, f"rank{rank}_{tag}.out"), "w") as log:
+        os.dup2(log.fileno(), 1)
+        os.dup2(log.fileno(), 2)
+    import torch
+
+    from mocogan_tpu_torch.ops import preproc
+    from mocogan_tpu_torch.parallel import mesh as pmesh
+    from mocogan_tpu_torch.train import __main__ as train_cli
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    torch.set_num_threads(1)       # many worlds share the host's cores
+    pmesh.initialize_distributed(torch.device(device), backend="gloo",
+                                 init_method=store)
+    try:
+        torch.zeros(1, device=device)      # start the context meanwhile
+        while not all(os.path.exists(f) for f in after):
+            time.sleep(0.2)
+        train_cli.main(argv)
+    finally:
+        torch.distributed.destroy_process_group()
+    path = os.path.join(out_dir, f"rank{rank}_{tag}.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump({"launches": preproc.LAUNCHES["resize_norm"]}, f)
+    os.replace(path + ".tmp", path)
+    sys.stdout.flush()
+
+
+def _start_world(argv, out_dir, tag, started, world=2, device="cuda:0",
+                 after=()):
+    """Start a gloo world of `world` train-CLI ranks on `device`
+    (``_cli_rank``, waiting for the files `after`) writing to `out_dir`;
+    its ``ProcessContext``, also appended to `started`."""
+    import torch.multiprocessing as mp
+
+    os.makedirs(out_dir, exist_ok=True)
+    store = "file://" + os.path.join(out_dir, f"store_{tag}")
+    args = [*argv, "--device", device, "--num-devices", str(world),
+            "--out-dir", out_dir]
+    started.append(mp.start_processes(
+        _cli_rank, args=(world, store, args, out_dir, tag, device,
+                         list(after)),
+        nprocs=world, join=False, start_method="spawn"))
+    return started[-1]
+
+
+def _kill(contexts) -> None:
+    """Kill every process of `contexts` that still runs."""
+    for ctx in contexts:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+        for p in ctx.processes:
+            p.join()
+
+
+def _world_launches(out_dir, tag, world=2) -> list:
+    """Each rank's ingest-kernel launches in a world of ``_start_world``."""
+    out = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}_{tag}.json")) as f:
+            out.append(json.load(f)["launches"])
+    return out
 
 
 def _free_port() -> int:
@@ -491,20 +582,34 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
+# the train CLI's main in a process of its own, then the process's
+# ingest-kernel launches to the file named by its first argument
+_COUNTED_CLI = (
+    "import json, sys\n"
+    "from mocogan_tpu_torch.ops import preproc\n"
+    "from mocogan_tpu_torch.train.__main__ import main\n"
+    "main(sys.argv[2:])\n"
+    "with open(sys.argv[1], 'w') as f:\n"
+    "    json.dump(preproc.LAUNCHES, f)\n")
+
+
 def _start_cli(args, out_dir, env=None):
     """Start the train CLI in a process of its own, its output to a file in
-    `out_dir`."""
+    `out_dir` and its ingest-kernel launches to launches.json there (the
+    process's own; a CLI that spawns its ranks launches none itself)."""
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "cli.out"), "w") as out:
         return subprocess.Popen(
-            [sys.executable, "-m", "mocogan_tpu_torch.train", *args,
+            [sys.executable, "-c", _COUNTED_CLI,
+             os.path.join(out_dir, "launches.json"), *args,
              "--out-dir", out_dir], cwd=ROOT, stdout=out,
             stderr=subprocess.STDOUT, env={**os.environ, **(env or {})})
 
 
-def _finish_cli(p, args, out_dir) -> list:
-    """Wait for a train CLI process (killed after 300 s); its log
-    records."""
+def _finish_cli(p, args, out_dir, steps=None):
+    """Wait for a train CLI process (killed after 300 s); its log records
+    and the ingest-kernel launches it made. With `steps`, the process must
+    have launched the kernel once for each of the steps it took."""
     try:
         rc = p.wait(timeout=300)
     except subprocess.TimeoutExpired:
@@ -515,13 +620,13 @@ def _finish_cli(p, args, out_dir) -> list:
         with open(os.path.join(out_dir, "cli.out")) as f:
             tail = f.read()[-6000:]
         raise AssertionError(f"train CLI {args}: rc {rc}\n{tail}")
+    with open(os.path.join(out_dir, "launches.json")) as f:
+        launches = json.load(f)["resize_norm"]
+    if steps is not None and launches != steps:
+        raise AssertionError(f"train CLI {args}: {launches} kernel "
+                             f"launches for {steps} steps")
     with open(os.path.join(out_dir, "log.jsonl")) as f:
-        return [json.loads(line) for line in f]
-
-
-def _train_cli(args, out_dir, env=None) -> list:
-    """Run the train CLI in a process of its own; its log records."""
-    return _finish_cli(_start_cli(args, out_dir, env), args, out_dir)
+        return [json.loads(line) for line in f], launches
 
 
 def _loss_records(run_dir) -> list:
@@ -533,11 +638,12 @@ def _loss_records(run_dir) -> list:
             for r in recs if any(kk.startswith("loss") for kk in r)]
 
 
-def _same_runs(run_a, run_b, step: int) -> dict:
+def _same_runs(run_a, run_b, step: int, nabc: bool = True) -> dict:
     """Raise unless two run dirs repeat each other bit for bit: equal loss
     records in log.jsonl, equal sha256 of every tensor (and every other
-    entry) of their step-`step` checkpoints, and the port's compare_runs
-    reading nabc 0.0 for every loss key. Returns what was compared."""
+    entry) of their step-`step` checkpoints, and (with `nabc`; it needs
+    two log records) the port's compare_runs reading nabc 0.0 for every
+    loss key. Returns what was compared."""
     from mocogan_tpu_torch.eval import compare_runs
     from mocogan_tpu_torch.utils import checkpoint
 
@@ -553,6 +659,9 @@ def _same_runs(run_a, run_b, step: int) -> dict:
         raise AssertionError(f"step-{step} checkpoints of {run_a} and "
                              f"{run_b} differ in {len(bad)} entries: "
                              f"{bad[:6]}")
+    if not nabc:
+        return {"records": len(recs[0]), "checkpoint_entries": len(dig[0]),
+                "nabc": None}
     rep = compare_runs.compare(*[compare_runs.load_log(
         os.path.join(r, "log.jsonl")) for r in (run_a, run_b)])
     nabc = {kk: v.get("nabc") for kk, v in rep["keys"].items()}
@@ -578,21 +687,115 @@ def _close(got: dict, want: dict, what: str) -> float:
     return worst
 
 
-def _data_parallel(overrides, pool, lengths, rh, rw, plans, rates, smi,
-                   tmp):
-    """Phase 13 on the mug config with `overrides`; returns the per-rank
-    layout's numbers, the launches of the two gloo ranks' calls and the
-    steps/s measured."""
-    import contextlib
+def _dp_worlds(store, sc_dir, tmp, started) -> dict:
+    """Start phase 13's train-CLI worlds side by side, two gloo ranks each
+    on card 0: mug fp32 device-cached A and B, C to step 32 and C resumed
+    to DET_STEPS in a fresh world (its ranks wait for the first world's
+    end), the host-fed pair, and the `scaled` pair (train.num_devices=2,
+    one call of the recipe's k). Returns {world: (out dir, tag, steps,
+    context)}."""
+    from mocogan_tpu_torch import get_config
 
+    k = get_config("mug").train.steps_per_call
+    k_sc = get_config("scaled").train.steps_per_call
+
+    def mug(steps, *extra):
+        return ["--config", "mug", "--data-dir", store, "--seed",
+                str(DET_SEED), "--total-steps", str(steps), "--set",
+                f"train.log_every={k}", f"train.checkpoint_every={k}",
+                *extra]
+
+    scaled = ["--config", "scaled", "--data-dir", sc_dir, "--seed",
+              str(DET_SEED), "--total-steps", str(k_sc), "--set",
+              f"train.log_every={k_sc}", f"train.checkpoint_every={k_sc}"]
+    c = os.path.join(tmp, "dp_resumed")
+    # world: (argv, out dir, tag, steps, files its ranks wait for)
+    jobs = {"cached_a": (mug(DET_STEPS), "cached_a", "1", DET_STEPS, ()),
+            "cached_b": (mug(DET_STEPS), "cached_b", "1", DET_STEPS, ()),
+            "resumed_1": (mug(DET_STEPS - k), "resumed", "1",
+                          DET_STEPS - k, ()),
+            "resumed_2": (mug(DET_STEPS), "resumed", "2", k,
+                          [os.path.join(c, f"rank{r}_1.json")
+                           for r in range(2)]),
+            "host_fed_a": (mug(DET_STEPS, "data.device_cache=false"),
+                           "host_fed_a", "1", DET_STEPS, ()),
+            "host_fed_b": (mug(DET_STEPS, "data.device_cache=false"),
+                           "host_fed_b", "1", DET_STEPS, ()),
+            "scaled_a": (scaled, "scaled_a", "1", k_sc, ()),
+            "scaled_b": (scaled, "scaled_b", "1", k_sc, ())}
+    out = {}
+    for name, (argv, run, tag, steps, after) in jobs.items():
+        d = os.path.join(tmp, f"dp_{run}")
+        out[name] = (d, tag, steps,
+                     _start_world(argv, d, tag, started, after=after))
+    return out
+
+
+def _finish_dp_worlds(worlds, t0) -> dict:
+    """Wait for the worlds of ``_dp_worlds`` under the DP_CLI_TIMEOUT_S
+    watchdog (from t0); check each rank's ingest launches against its
+    world's steps, then compare the pairs with ``_same_runs``. Returns the
+    comparisons, the launches, the seconds and each world's end (s from
+    t0)."""
+    open_ = dict(worlds)
+    launches, ends = {}, {}
+    while open_:
+        for name, (d, tag, steps, ctx) in list(open_.items()):
+            try:
+                done = ctx.join(timeout=0.5)    # raises if a rank failed
+            except Exception as e:
+                raise AssertionError(
+                    f"data-parallel world {name} failed: {e}\n"
+                    + _tail(os.path.join(d, f"rank0_{tag}.out"))) from e
+            if not done:
+                continue
+            del open_[name]
+            got = _world_launches(d, tag)
+            if got != [steps, steps]:
+                raise AssertionError(f"world {name}: kernel launches {got} "
+                                     f"a rank for {steps} steps")
+            launches[name] = got
+            ends[name] = round(time.perf_counter() - t0, 1)
+        if time.perf_counter() - t0 > DP_CLI_TIMEOUT_S:
+            raise TimeoutError(f"the train-CLI worlds ran past "
+                               f"{DP_CLI_TIMEOUT_S} s: {sorted(open_)}")
+    secs = time.perf_counter() - t0
+    d = {name: w[0] for name, w in worlds.items()}
+    k_sc = worlds["scaled_a"][2]
+    same = {"device_cached": _same_runs(d["cached_a"], d["cached_b"],
+                                        DET_STEPS),
+            "resumed_vs_straight": _same_runs(d["resumed_2"], d["cached_a"],
+                                              DET_STEPS),
+            "host_fed": _same_runs(d["host_fed_a"], d["host_fed_b"],
+                                   DET_STEPS),
+            # one call logs one record: compare_runs reads no curve
+            "scaled": _same_runs(d["scaled_a"], d["scaled_b"], k_sc,
+                                 nabc=False)}
+    return {"same": same, "launches": launches, "seconds": secs,
+            "ends": ends}
+
+
+def _tail(path, n=6000) -> str:
+    try:
+        with open(path) as f:
+            return f.read()[-n:]
+    except OSError as e:
+        return f"({e})"
+
+
+def _data_parallel(overrides, pool, lengths, rh, rw, plans, rates, smi,
+                   tmp, sc_dir):
+    """Phase 13 on the mug config with `overrides` (and `scaled` on the
+    store `sc_dir`); returns the per-rank layouts' numbers, the ingest
+    launches of every rank and the figures measured."""
     import torch
-    import torch.multiprocessing as mp
 
     from mocogan_tpu_torch import get_config
-    from mocogan_tpu_torch.train import state as tstate
-    from mocogan_tpu_torch.train import step as tstep
-    from mocogan_tpu_torch.utils.platform import cudnn_deterministic
+    from mocogan_tpu_torch import scaling_dossier
+    from mocogan_tpu_torch.data import clips
+    from mocogan_tpu_torch.ops import preproc
 
+    t_phase = time.perf_counter()
     cfg = get_config("mug", **overrides)
     m, b, k = cfg.model, cfg.train.batch_size, cfg.train.steps_per_call
     dev = pool.device
@@ -603,23 +806,145 @@ def _data_parallel(overrides, pool, lengths, rh, rw, plans, rates, smi,
     lay = _layout(pool, half, rh, rw, s, rates,
                   f"per-rank mug layout (B {b // 2} of {b}, T "
                   f"{m.video_length}, {h} -> {s} px)")
+    sc = get_config("scaled")
+    pool_sc_np, lengths_sc_np, _ = clips.load_pool(sc_dir)
+    pool_sc = torch.from_numpy(pool_sc_np).to(dev)
+    del pool_sc_np
+    b_sc, s_sc = sc.train.batch_size, sc.model.image_size
+    half_sc = [(sel[:b_sc // 2].contiguous(), ix[:b_sc // 2].contiguous())
+               for sel, ix in _plans(torch.from_numpy(lengths_sc_np), 8,
+                                     b_sc, sc.model.video_length, dev)]
+    lay_sc = _layout(pool_sc, half_sc,
+                     *preproc.resize_weights(pool_sc.shape[2],
+                                             pool_sc.shape[3], s_sc, dev),
+                     s_sc, rates,
+                     f"per-rank scaled layout (B {b_sc // 2} of {b_sc}, T "
+                     f"{sc.model.video_length}, {pool_sc.shape[2]} -> "
+                     f"{s_sc} px)")
+    del pool_sc, half_sc
 
-    # two ranks on card 0 over gloo against one process, deterministic
+    # the train CLI in gloo worlds of two ranks on card 0, side by side,
+    # while this process holds the two ranks against one process
+    t_worlds = time.perf_counter()
+    started = []
+    try:
+        worlds = _dp_worlds(cfg.data.data_dir, sc_dir, tmp, started)
+        out = _dp_check(cfg, overrides, pool, lengths, rh, rw, smi, tmp)
+        cli = _finish_dp_worlds(worlds, t_worlds)
+    finally:
+        _kill(started)
+    for what, r in cli["same"].items():
+        print(f"[data-parallel] {smi}: train CLI, 2 gloo ranks on card 0, "
+              f"{what} (seed {DET_SEED}, TF32 as the CLI leaves it, no "
+              f"global deterministic flag): {r['records']} loss records "
+              f"and {r['checkpoint_entries']} checkpoint entries bit-equal;"
+              f" compare_runs nabc " + (json.dumps(r["nabc"])
+                                        if r["nabc"] is not None else
+                                        "not read (one log record)"))
+    print(f"[data-parallel] {smi}: the {len(cli['launches'])} train-CLI "
+          f"worlds' ingest launches a rank " + json.dumps(cli["launches"])
+          + " = each "
+          f"world's steps; the worlds took {cli['seconds']:.1f} s, each "
+          f"ending at (s) " + json.dumps(cli["ends"]))
+    out["launches"] += sum(sum(v) for v in cli["launches"].values())
+    out.update(layout=lay, scaled_layout=lay_sc, cli_worlds=cli["same"],
+               cli_worlds_seconds=cli["seconds"])
+
+    # the data-parallel layer's accounting, alone on the card
+    t0 = time.perf_counter()
+    dossier = scaling_dossier.build(dev)
+    dossier_s = time.perf_counter() - t0
+    for name in scaling_dossier.CONFIGS:
+        tr = dossier[f"traffic_{name}"]
+        want = 4 * tr["param_count"]
+        print(f"[dossier] {smi}: {name}: gradient buckets "
+              f"{tr['grad_bucket_bytes_total']} B a step a rank "
+              + json.dumps(tr["grad_bucket_bytes"]) + f" (4 B x param_count"
+              f" {tr['param_count']} = {want}); all collectives "
+              f"{tr['collective_bytes_total']} B in {tr['calls_per_step']} "
+              f"calls " + json.dumps(tr["by_kind"]) + "; ring analytic "
+              + json.dumps(tr["analytic_ring_allreduce_bytes_by_n"])
+              + "; JAX recorded " + json.dumps(tr.get("jax")))
+        for label, v in tr["allreduce_ms"].items():
+            print(f"[dossier] {smi}: {name}, {label}: bucket ms alone "
+                  + json.dumps(v["bucket_ms"]) + "; one step's "
+                  f"collectives {v['step_collectives_ms_total']:.3f} ms "
+                  + json.dumps(v["step_collectives_ms"])
+                  + f" of a {v['step_ms']:.1f} ms step")
+        if tr["grad_bucket_bytes_total"] != want:
+            raise AssertionError(f"{name}: gradient buckets "
+                                 f"{tr['grad_bucket_bytes_total']} B, want "
+                                 f"4 x param_count = {want}")
+    print(f"[dossier] {smi}: weak scaling "
+          f"{json.dumps(dossier['weak_scaling'])} "
+          f"({dossier['weak_scaling_reason']}); took {dossier_s:.1f} s, "
+          f"the worlds (s; the second from the first's end) "
+          + json.dumps(dossier["world_seconds"]))
+    out["dossier"] = {name: {kk: dossier[f"traffic_{name}"][kk] for kk in (
+        "param_count", "grad_bucket_bytes_total", "collective_bytes_total",
+        "calls_per_step", "allreduce_ms")}
+        for name in scaling_dossier.CONFIGS}
+    out["dossier_seconds"] = dossier_s
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"[data-parallel] {smi}: {n_cards} card visible: two NCCL "
+              f"ranks on two cards not run, nor their second run and its "
+              f"comparison")
+    else:
+        args = ["--config", "mug", "--data-dir", cfg.data.data_dir,
+                "--seed", str(DET_SEED), "--num-devices", "2",
+                "--total-steps", str(4 * k), "--set",
+                f"train.log_every={k}", "train.sample_every=0"]
+        dirs = [os.path.join(tmp, f"run_nccl2_{x}") for x in "ab"]
+        procs = [_start_cli(args, d_) for d_ in dirs]
+        try:
+            recs = [_finish_cli(p, args, d_)[0]
+                    for p, d_ in zip(procs, dirs)][0]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        _check_losses(recs)
+        same = _same_runs(*dirs, 4 * k)
+        warm = [r for r in recs if "steps_per_sec" in r][1:]
+        sps = len(warm) * k / sum(k / r["steps_per_sec"] for r in warm)
+        out["nccl2_steps_per_s"] = sps
+        out["nccl2_same"] = same
+        print(f"[data-parallel] {smi} (x {n_cards}): two NCCL ranks on two "
+              f"cards through the train CLI, global batch {b}, two runs "
+              f"side by side: {sps:.3f} steps/s, {sps * b:.1f} clips/s "
+              f"after the first call; {same['records']} loss records and "
+              f"{same['checkpoint_entries']} checkpoint entries bit-equal")
+    print(f"[data-parallel] {smi}: phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _dp_check(cfg, overrides, pool, lengths, rh, rw, smi, tmp) -> dict:
+    """Two gloo ranks on card 0 (``_dp_rank``) against one process on the
+    global batch, at the unchanged DP_* tolerances; returns the figures
+    and the ranks' ingest launches (``launches``)."""
+    import torch
+    import torch.multiprocessing as mp
+
+    b, k = cfg.train.batch_size, cfg.train.steps_per_call
+    dev = pool.device
     world = 2
     t0 = time.perf_counter()
     ranks = mp.spawn(_dp_rank, args=(
         world, "file://" + os.path.join(tmp, "dp_store"), overrides, tmp,
         str(dev)), nprocs=world, join=False)
-    while not ranks.join(timeout=5):       # raises if a rank failed
-        if time.perf_counter() - t0 > DP_TIMEOUT_S:
-            for p in ranks.processes:
-                p.kill()
-            raise TimeoutError(f"the gloo ranks ran past {DP_TIMEOUT_S} s")
+    try:
+        while not ranks.join(timeout=5):       # raises if a rank failed
+            if time.perf_counter() - t0 > DP_TIMEOUT_S:
+                raise TimeoutError(f"the gloo ranks ran past "
+                                   f"{DP_TIMEOUT_S} s")
+    finally:
+        _kill([ranks])
     spawn_s = time.perf_counter() - t0
     ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=True)
              for r in range(world)]
-    with cudnn_deterministic():
-        ref = _dp_call(cfg, None, dev, pool, lengths, rh, rw)
+    ref = _dp_call(cfg, None, dev, pool, lengths, rh, rw)
     for r, res in enumerate(ranks):
         if res["steps"] != k or res["launches"] != k:
             raise AssertionError(f"rank {r}: {res['steps']} steps, "
@@ -634,9 +959,7 @@ def _data_parallel(overrides, pool, lengths, rh, rw, plans, rates, smi,
     # step-0 tolerance (tests/test_parallel.py says the same of JAX's).
     # The one process on its batches in reverse order parts from itself
     # the same way: the control printed beside the ranks' drift.
-    with cudnn_deterministic():
-        control = _steps(cfg, None, dev, pool, lengths, rh, rw,
-                         reverse=True)[0]
+    control = _steps(cfg, None, dev, pool, lengths, rh, rw, reverse=True)[0]
 
     def drift_of(runs):
         return [max(abs(mm[i][kk] - v) / max(abs(v), 1e-12)
@@ -652,8 +975,7 @@ def _data_parallel(overrides, pool, lengths, rh, rw, plans, rates, smi,
     # first convs) are ill-conditioned in fp32: one process summing its
     # own batch in reverse order moves them by more than DP_GRAD_TOL of
     # their max. That floor, measured here, bounds the ranks' error too.
-    with cudnn_deterministic():
-        rev = _step0(cfg, None, dev, pool, lengths, rh, rw, reverse=True)[0]
+    rev = _step0(cfg, None, dev, pool, lengths, rh, rw, reverse=True)[0]
 
     def grad_err(grads):
         return max(_max_err(grads[name], want)
@@ -675,8 +997,8 @@ def _data_parallel(overrides, pool, lengths, rh, rw, plans, rates, smi,
         raise AssertionError(f"params differ across ranks: {unequal[:5]}")
     sps_gloo = [k / res["seconds"] for res in ranks]
     print(f"[data-parallel] {smi}: 2 ranks on card 0 over gloo (global "
-          f"batch {b}, {b // 2} a rank, cudnn.deterministic) vs one process "
-          f"on the global batch: step 0 metrics max rel err {err0:.2e}, "
+          f"batch {b}, {b // 2} a rank) vs one process on the global "
+          f"batch: step 0 metrics max rel err {err0:.2e}, "
           f"gradients {dp_err:.2e} of each leaf's max (tol {grad_tol:.2e}:"
           f" the larger of {DP_GRAD_TOL} and {DP_FLOOR_FACTOR} x the "
           f"{floor:.2e} between the one process's batch in order and "
@@ -687,70 +1009,14 @@ def _data_parallel(overrides, pool, lengths, rh, rw, plans, rates, smi,
           f"{', '.join(f'{x:.1e}' for x in drift_control)}); "
           f"params bit-equal across the ranks; kernel launches "
           f"{ranks[0]['launches']} + {ranks[1]['launches']} = 2 x {k} steps;"
-          f" {k} steps, warm-up included: "
+          f" {k} steps, warm-up included, beside the train-CLI worlds: "
           f"{', '.join(f'{x:.3f}' for x in sps_gloo)} steps/s a rank "
           f"({k / ref['seconds']:.3f} for the one process); the spawned "
           f"ranks took {spawn_s:.1f} s")
-    launches = sum(res["launches"] for res in ranks)
-    del ranks, ref
-
-    # cudnn.deterministic on and off: alternating warm calls of k steps
-    st = tstate.create(cfg, device=dev)
-    tstep.cached_multi_train_step(st, pool, lengths, k, rh, rw)
-    det = {True: [], False: []}
-    for on in (True, False, False, True):
-        with cudnn_deterministic() if on else contextlib.nullcontext():
-            t0 = time.perf_counter()
-            mm = tstep.cached_multi_train_step(st, pool, lengths, k, rh, rw)
-            torch.stack(list(mm.values())).tolist()
-            det[on].append(k / (time.perf_counter() - t0))
-    del st
-    print(f"[data-parallel] {smi}: mug fp32 device-cached, one process, "
-          f"steps/s with cudnn.deterministic on "
-          f"{', '.join(f'{x:.3f}' for x in det[True])}, off "
-          f"{', '.join(f'{x:.3f}' for x in det[False])} (calls on, off, "
-          f"off, on; {k} steps each)")
-
-    # a one-rank NCCL world through the train CLI, as torchrun starts it
-    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
-           "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
-           "MASTER_PORT": str(_free_port())}
-    recs = _train_cli(["--config", "mug", "--data-dir", cfg.data.data_dir,
-                       "--total-steps", str(k), "--set",
-                       f"train.log_every={k}", "train.sample_every=0"],
-                      os.path.join(tmp, "run_nccl1"), env)
-    _check_losses(recs)
-    if [r["step"] for r in recs] != [k]:
-        raise AssertionError(f"one-rank NCCL run logged {recs}")
-    print(f"[data-parallel] {smi}: one-rank NCCL world (torchrun's "
-          f"environment) through the train CLI: {k} steps, "
-          f"{recs[-1]['steps_per_sec']} steps/s (one call, warm-up "
-          f"included), losses finite")
-
-    out = {"layout": lay, "launches": launches,
-           "gloo_steps_per_s": sps_gloo, "metrics_drift": drift,
-           "metrics_drift_control": drift_control,
-           "grad_err": dp_err, "grad_floor": floor,
-           "deterministic_steps_per_s": det[True],
-           "default_steps_per_s": det[False]}
-    n_cards = torch.cuda.device_count()
-    if n_cards < 2:
-        print(f"[data-parallel] {smi}: {n_cards} card visible: two NCCL "
-              f"ranks on two cards not run")
-        return out
-    recs = _train_cli(["--config", "mug", "--data-dir", cfg.data.data_dir,
-                       "--num-devices", "2", "--total-steps", str(4 * k),
-                       "--set", f"train.log_every={k}",
-                       "train.sample_every=0"],
-                      os.path.join(tmp, "run_nccl2"))
-    _check_losses(recs)
-    warm = [r for r in recs if "steps_per_sec" in r][1:]
-    sps = len(warm) * k / sum(k / r["steps_per_sec"] for r in warm)
-    out["nccl2_steps_per_s"] = sps
-    print(f"[data-parallel] {smi} (x {n_cards}): two NCCL ranks on two "
-          f"cards through the train CLI, global batch {b}: {sps:.3f} "
-          f"steps/s, {sps * b:.1f} clips/s after the first call")
-    return out
+    return {"launches": sum(res["launches"] for res in ranks),
+            "gloo_steps_per_s": sps_gloo, "metrics_drift": drift,
+            "metrics_drift_control": drift_control, "grad_err": dp_err,
+            "grad_floor": floor}
 
 
 def _restore(cfg, run_dir, dev):
@@ -1135,12 +1401,14 @@ def _determinism(store, cat_dir, sc_dir, pool, lengths, smi, dev,
                  tmp) -> dict:
     """Phase 16: training repeats bit for bit from its seed. Two fresh
     train-CLI processes per mode (mug fp32, device-cached and host-fed,
-    DET_STEPS steps, one seed, TF32 as the CLI leaves it) and a run
-    resumed from step 32, side by side on the card, then compared by
-    ``_same_runs``; two calls each, from equal states, of the sequential
-    order, the categorical model, the bf16 recipe and `scaled` in this
-    process. Returns the comparisons and the in-process ingest launches
-    (``launches``)."""
+    DET_STEPS steps, one seed, TF32 as the CLI leaves it), a run resumed
+    from step 32, and two one-rank NCCL worlds in torchrun's environment
+    with cached_a's args, side by side on the card, then compared by
+    ``_same_runs`` (each NCCL run also against cached_a); two calls each,
+    from equal states, of the sequential order, the categorical model, the
+    bf16 recipe and `scaled` in this process. Returns the comparisons and
+    the ingest launches of the in-process calls and the CLI processes
+    (``launches``), each process's checked against its steps."""
     import torch
 
     from mocogan_tpu_torch import get_config
@@ -1161,21 +1429,43 @@ def _determinism(store, cat_dir, sc_dir, pool, lengths, smi, dev,
     jobs = {"cached_a": args(DET_STEPS), "cached_b": args(DET_STEPS),
             "host_fed_a": args(DET_STEPS, "data.device_cache=false"),
             "host_fed_b": args(DET_STEPS, "data.device_cache=false"),
-            "resumed": args(DET_STEPS - k)}
+            "resumed": args(DET_STEPS - k),
+            "nccl1_a": args(DET_STEPS), "nccl1_b": args(DET_STEPS)}
     dirs = {name: os.path.join(tmp, f"det_{name}") for name in jobs}
-    procs = {name: _start_cli(a, dirs[name]) for name, a in jobs.items()}
-    # the resumed run's second process starts when its first one ends
-    _finish_cli(procs.pop("resumed"), jobs["resumed"], dirs["resumed"])
-    rest = _start_cli(args(DET_STEPS), dirs["resumed"])
-    for name, p in procs.items():
-        _finish_cli(p, jobs[name], dirs[name])
-    _finish_cli(rest, args(DET_STEPS), dirs["resumed"])
+    # a one-rank NCCL world, as torchrun starts it: every collective is an
+    # identity, so the run must be the plain process's bit for bit
+    env = {name: {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                  "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
+                  "MASTER_PORT": str(_free_port())}
+           for name in jobs if name.startswith("nccl1")}
+    procs = {name: _start_cli(a, dirs[name], env.get(name))
+             for name, a in jobs.items()}
+    cli_launches = 0
+    try:
+        # the resumed run's second process starts when its first one ends
+        cli_launches += _finish_cli(procs["resumed"], jobs["resumed"],
+                                    dirs["resumed"], DET_STEPS - k)[1]
+        procs["resumed"] = _start_cli(args(DET_STEPS), dirs["resumed"])
+        for name, p in procs.items():
+            if name != "resumed":
+                cli_launches += _finish_cli(p, jobs[name], dirs[name],
+                                            DET_STEPS)[1]
+        cli_launches += _finish_cli(procs["resumed"], args(DET_STEPS),
+                                    dirs["resumed"], k)[1]
+    finally:
+        for p in procs.values():
+            p.kill()
+            p.wait()
     cli = {"device_cached": _same_runs(dirs["cached_a"], dirs["cached_b"],
                                        DET_STEPS),
            "host_fed": _same_runs(dirs["host_fed_a"], dirs["host_fed_b"],
                                   DET_STEPS),
            "resumed_vs_straight": _same_runs(dirs["resumed"],
-                                             dirs["cached_a"], DET_STEPS)}
+                                             dirs["cached_a"], DET_STEPS),
+           "nccl_one_rank": _same_runs(dirs["nccl1_a"], dirs["nccl1_b"],
+                                       DET_STEPS),
+           "nccl_one_rank_vs_plain": _same_runs(dirs["nccl1_a"],
+                                                dirs["cached_a"], DET_STEPS)}
     cli_s = time.perf_counter() - t_phase
     for what, r in cli.items():
         print(f"[determinism] {smi}: train CLI mug fp32 {what}, seed "
@@ -1241,11 +1531,13 @@ def _determinism(store, cat_dir, sc_dir, pool, lengths, smi, dev,
         raise AssertionError(f"determinism: {launches} kernel launches, "
                              f"want {want}")
     secs = time.perf_counter() - t_phase
-    print(f"[determinism] {smi}: ingest kernel launches {launches} (the "
-          f"in-process calls); train CLI runs {cli_s:.1f} s; phase took "
-          f"{secs:.1f} s")
-    return {"cli": cli, "variants": out, "launches": launches,
-            "cli_seconds": cli_s, "seconds": secs}
+    print(f"[determinism] {smi}: ingest kernel launches {launches} in the "
+          f"in-process calls and {cli_launches} in the {len(jobs) + 1} "
+          f"train-CLI processes (one a step in each); train CLI runs "
+          f"{cli_s:.1f} s; phase took {secs:.1f} s")
+    return {"cli": cli, "variants": out,
+            "launches": launches + cli_launches, "cli_seconds": cli_s,
+            "seconds": secs}
 
 
 def main() -> int:
@@ -1725,7 +2017,7 @@ def main() -> int:
 
         # ---- 13. data parallel -------------------------------------------
         dp = _data_parallel({"data.data_dir": cfg.data.data_dir}, pool,
-                            lengths, rh, rw, plans, rates, smi, tmp)
+                            lengths, rh, rw, plans, rates, smi, tmp, sc_dir)
 
         # ---- 14. reference parity ---------------------------------------
         ref = _reference_parity(cfg, run_hf, cfg_cat, run_cat_hf, tmp, dev,
@@ -1758,16 +2050,19 @@ def main() -> int:
         "replaces": "mocogan_tpu/ops/preproc.py:90",
         "launches": sum(by_path.values()), "launches_by_path": by_path,
         "max_abs_err": max(lay_mug["max_abs_err"], lay_sc["max_abs_err"],
-                           dp["layout"]["max_abs_err"], err_hf,
+                           dp["layout"]["max_abs_err"],
+                           dp["scaled_layout"]["max_abs_err"], err_hf,
                            lay_ev["max_abs_err"]),
         "ms": lay_mug["ms"], "plain_ms": lay_mug["plain_ms"],
         "bound_ms": lay_mug["bound_ms"], "bound_by": lay_mug["bound_by"],
         "bound_frac": (None if lay_mug["bound_ms"] is None
                        else lay_mug["bound_ms"] / lay_mug["ms"]),
         "library_ms": lay_mug["library_ms"], "eval_pool_layout": lay_ev,
-        "scaled_layout": lay_sc, "per_rank_layout": dp["layout"]}]}))
+        "scaled_layout": lay_sc, "per_rank_layout": dp["layout"],
+        "per_rank_scaled_layout": dp["scaled_layout"]}]}))
     print(json.dumps({"variants": variants, "data_parallel": {
-        kk: v for kk, v in dp.items() if kk not in ("layout", "launches")},
+        kk: v for kk, v in dp.items()
+        if kk not in ("layout", "scaled_layout", "launches")},
         "reference_parity": {kk: v for kk, v in ref.items()
                              if kk != "launches"}, "timers": timers,
         "determinism": det}))

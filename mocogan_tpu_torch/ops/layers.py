@@ -305,8 +305,8 @@ def batchnorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         mean = xf.mean(red)
         msq = (xf * xf).mean(red)
         if mesh is not None and mesh.collective:
-            mean, msq = all_reduce_mean(torch.stack([mean, msq]),
-                                        mesh).unbind(0)
+            mean, msq = all_reduce_mean(torch.stack([mean, msq]), mesh,
+                                        "bn").unbind(0)
         var = msq - mean * mean
     else:
         mean, var = running_mean, running_var

@@ -23,6 +23,11 @@ collectives itself, so that the equality holds here too:
 Every rank applies the same reduced gradient, so the parameters stay
 bit-identical across ranks; ``check_replicated`` asserts it.
 
+Every collective the step issues is counted by kind in ``TRAFFIC`` (calls
+and the bytes of the tensor each call reduces), and timed inside
+``timed_collectives``: the data-parallel layer's own accounting, which
+``mocogan_tpu_torch.scaling_dossier`` reports.
+
 Launch: under ``torchrun`` (``initialize_distributed`` reads RANK,
 WORLD_SIZE, LOCAL_RANK and MASTER_ADDR/PORT from its environment), or
 ``python -m mocogan_tpu_torch.train --num-devices N``, which spawns N
@@ -32,12 +37,73 @@ is issued at all.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
-from typing import Any, Iterable, List, Optional
+import time
+from typing import Any, Dict, Iterable, List, Optional
 
 import torch
 import torch.distributed as dist
+
+
+# Collectives issued in this process, by kind: {kind: {"calls", "bytes"}},
+# the bytes of the tensor each call reduces or broadcasts. A run resets and
+# reads it. The step's kinds: "bn" and "bn_backward" (BatchNorm's batch
+# statistics and their gradient), "grad_<net>" (each net's gradient
+# bucket), "metrics"; apart from the step: "replication"
+# (``check_replicated``) and "barrier". Without a process group nothing is
+# issued and nothing is counted.
+TRAFFIC: Dict[str, Dict[str, int]] = {}
+# while ``timed_collectives`` runs: (kind, start, end) of each call
+_TIMED: Optional[list] = None
+
+
+@contextlib.contextmanager
+def _collective(kind: str, t: Optional[torch.Tensor] = None):
+    """Count one collective of `kind` on `t` (None: moves no data) around
+    the block that issues it; time it while ``timed_collectives`` runs."""
+    c = TRAFFIC.setdefault(kind, {"calls": 0, "bytes": 0})
+    c["calls"] += 1
+    if t is not None:
+        c["bytes"] += t.numel() * t.element_size()
+    if _TIMED is None:
+        yield
+        return
+    if t is not None and t.is_cuda:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        yield
+        end.record()
+    else:
+        start = time.perf_counter()
+        yield
+        end = time.perf_counter()
+    _TIMED.append((kind, start, end))
+
+
+@contextlib.contextmanager
+def timed_collectives():
+    """Time every collective issued in the block. Yields a dict that holds,
+    once the block ends, the summed ms of each kind: CUDA events around a
+    call on a CUDA tensor (the card's time from reaching the call to its
+    end), the host clock around the others. Blocks do not nest."""
+    global _TIMED
+    if _TIMED is not None:
+        raise RuntimeError("timed_collectives blocks do not nest")
+    calls: list = []
+    out: Dict[str, float] = {}
+    _TIMED = calls
+    try:
+        yield out
+    finally:
+        _TIMED = None
+    if any(isinstance(s, torch.cuda.Event) for _, s, _ in calls):
+        torch.cuda.synchronize()
+    for kind, s, e in calls:
+        ms = s.elapsed_time(e) if isinstance(s, torch.cuda.Event) \
+            else 1e3 * (e - s)
+        out[kind] = out.get(kind, 0.0) + ms
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,36 +269,42 @@ def local_batch_size(cfg, mesh: Mesh) -> int:
 class _AllReduceSum(torch.autograd.Function):
     """SUM over the ranks; its backward is the SUM of the upstream
     gradients over the ranks (each rank's input reaches every rank's
-    output)."""
+    output). Counted as `kind` and "<kind>_backward"."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, kind):
+        ctx.kind = kind
         y = x.contiguous().clone()
-        dist.all_reduce(y)
+        with _collective(kind, y):
+            dist.all_reduce(y)
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        dist.all_reduce(g)
-        return g
+        with _collective(ctx.kind + "_backward", g):
+            dist.all_reduce(g)
+        return g, None
 
 
-def all_reduce_mean(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
-    """The mean of `x` over the ranks, differentiable; `x` itself without a
-    process group."""
+def all_reduce_mean(x: torch.Tensor, mesh: Optional[Mesh],
+                    kind: str) -> torch.Tensor:
+    """The mean of `x` over the ranks, differentiable, counted in
+    ``TRAFFIC`` as `kind`; `x` itself without a process group."""
     if mesh is None or not mesh.collective:
         return x
-    return _AllReduceSum.apply(x) / mesh.world_size
+    return _AllReduceSum.apply(x, kind) / mesh.world_size
 
 
-def all_reduce_grads(grads: List[torch.Tensor], mesh: Optional[Mesh]
-                     ) -> List[torch.Tensor]:
+def all_reduce_grads(grads: List[torch.Tensor], mesh: Optional[Mesh],
+                     kind: str) -> List[torch.Tensor]:
     """Each gradient averaged over the ranks, through one flat fp32 bucket
-    (one all-reduce per call); returned as views of that bucket."""
+    (one all-reduce per call, counted as `kind`); returned as views of
+    that bucket."""
     if mesh is None or not mesh.collective or not grads:
         return grads
-    flat = all_reduce_mean(torch.cat([g.reshape(-1) for g in grads]), mesh)
+    flat = all_reduce_mean(torch.cat([g.reshape(-1) for g in grads]), mesh,
+                           kind)
     return [part.view(g.shape) for part, g in zip(
         flat.split([g.numel() for g in grads]), grads)]
 
@@ -240,10 +312,11 @@ def all_reduce_grads(grads: List[torch.Tensor], mesh: Optional[Mesh]
 def barrier(mesh: Optional[Mesh]) -> None:
     if mesh is None or not mesh.collective:
         return
-    if dist.get_backend() == "nccl":
-        dist.barrier(device_ids=[mesh.device.index])
-    else:
-        dist.barrier()
+    with _collective("barrier"):
+        if dist.get_backend() == "nccl":
+            dist.barrier(device_ids=[mesh.device.index])
+        else:
+            dist.barrier()
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -264,9 +337,11 @@ def check_replicated(tensors: Iterable[torch.Tensor], mesh: Optional[Mesh],
         return
     mine = torch.stack([_bits(t).to(mesh.device) for t in tensors])
     ref = mine.clone()
-    dist.broadcast(ref, src=0)
+    with _collective("replication", ref):
+        dist.broadcast(ref, src=0)
     bad = (mine != ref).any().to(torch.int64).view(1)
-    dist.all_reduce(bad, op=dist.ReduceOp.MAX)
+    with _collective("replication", bad):
+        dist.all_reduce(bad, op=dist.ReduceOp.MAX)
     if int(bad.item()):
         raise RuntimeError(f"the {what} differs across ranks: every rank "
                            f"must hold the same replicated {what}")

@@ -197,7 +197,8 @@ def _grads(state: TrainState, loss: torch.Tensor, names: Iterable[str],
     out: Grads = {}
     for (n, pn, _), g in zip(named, gs):
         out.setdefault(n, {})[pn] = g
-    return {n: dict(zip(g, pmesh.all_reduce_grads(list(g.values()), mesh)))
+    return {n: dict(zip(g, pmesh.all_reduce_grads(list(g.values()), mesh,
+                                                  f"grad_{n}")))
             for n, g in out.items()}
 
 
@@ -209,7 +210,7 @@ def _mean_metrics(metrics: Dict[str, torch.Tensor], mesh: Optional[Mesh]
     if mesh is None or not mesh.collective:
         return metrics
     return dict(zip(metrics, pmesh.all_reduce_mean(
-        torch.stack(list(metrics.values())), mesh).unbind(0)))
+        torch.stack(list(metrics.values())), mesh, "metrics").unbind(0)))
 
 
 def _d_names(state: TrainState) -> List[str]:

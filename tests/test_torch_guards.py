@@ -59,14 +59,15 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 
 def test_entry_points_refuse_a_missing_gpu(monkeypatch, tmp_path):
-    from mocogan_tpu_torch import eval_fvd, get_config, parity_day, sample
+    from mocogan_tpu_torch import (eval_fvd, get_config, parity_day, sample,
+                                   scaling_dossier)
     from mocogan_tpu_torch.eval import fvd, i3d, import_chainer, parity
     from mocogan_tpu_torch.eval.panel import PanelRunner
     from mocogan_tpu_torch.parallel import mesh
     from mocogan_tpu_torch.train import state
     from mocogan_tpu_torch.train.__main__ import main as train_main
     from mocogan_tpu_torch.train.loop import Trainer
-    from mocogan_tpu_torch.utils import benchmarking, profiling
+    from mocogan_tpu_torch.utils import benchmarking, profiling, timer_turns
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_config("toy")
@@ -97,6 +98,9 @@ def test_entry_points_refuse_a_missing_gpu(monkeypatch, tmp_path):
                  lambda: fvd.fvd(None, None),
                  lambda: benchmarking.time_single_step(cfg),
                  lambda: benchmarking.time_cached_scan(cfg),
-                 lambda: benchmarking.time_generate(cfg, 4)):
+                 lambda: benchmarking.time_generate(cfg, 4),
+                 lambda: scaling_dossier.main(["--out",
+                                               str(tmp_path / "dossier")]),
+                 lambda: timer_turns.main([ROOT])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

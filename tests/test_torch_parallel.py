@@ -38,6 +38,7 @@ from mocogan_tpu_torch import bridge
 from mocogan_tpu_torch.data import synthetic
 from mocogan_tpu_torch.parallel import mesh as pmesh
 from mocogan_tpu_torch.train import state as tstate
+from mocogan_tpu_torch.utils.checkpoint import digests
 from test_torch_parallel_child import SCENARIOS, TINY, config, run
 
 torch.set_num_threads(1)
@@ -145,8 +146,8 @@ def test_local_batch_size_and_no_collective_without_a_group():
     mesh = pmesh.make_mesh(None, 1, "cpu")
     assert (mesh.world_size, mesh.rank, mesh.collective) == (1, 0, False)
     x = torch.ones(3, requires_grad=True)
-    assert pmesh.all_reduce_mean(x, mesh) is x
-    assert pmesh.all_reduce_grads([x], None)[0] is x
+    assert pmesh.all_reduce_mean(x, mesh, "bn") is x
+    assert pmesh.all_reduce_grads([x], None, "grad_gen")[0] is x
     pmesh.barrier(mesh)            # no group: nothing to wait for
     with pytest.raises(RuntimeError, match="no CUDA device cuda:0"):
         pmesh.rank_device(torch.device("cuda"), torch.cuda.device_count())
@@ -370,21 +371,23 @@ def _wait(procs):
 
 @pytest.fixture(scope="module")
 def cli_runs(tmp_path_factory):
-    """2 ranks straight to step 4; 2 ranks to 2, then resumed to 4; one
-    process to 4; a one-rank world in torchrun's environment to 4. The
-    runs that do not wait on each other run together."""
+    """2 ranks straight to step 4, twice; 2 ranks to 2, then resumed to 4;
+    one process to 4; a one-rank world in torchrun's environment to 4.
+    The runs that do not wait on each other run together."""
     tmp = tmp_path_factory.mktemp("cli")
     store = synthetic.write_store(str(tmp / "store"), clips=6, frames=10,
                                   size=40)
-    dirs = {k: tmp / k for k in ("two", "resumed", "one", "torchrun")}
+    dirs = {k: tmp / k for k in ("two", "two_b", "resumed", "one",
+                                 "torchrun")}
     torchrun = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
                 "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
                 "MASTER_PORT": str(_free_port())}
-    straight, _, _, _ = _wait([_cli(store, dirs["two"], 4, 2),
-                               _cli(store, dirs["resumed"], 2, 2),
-                               _cli(store, dirs["one"], 4, 1),
-                               _cli(store, dirs["torchrun"], 4, 1,
-                                    torchrun)])
+    straight, _, _, _, _ = _wait([_cli(store, dirs["two"], 4, 2),
+                                  _cli(store, dirs["two_b"], 4, 2),
+                                  _cli(store, dirs["resumed"], 2, 2),
+                                  _cli(store, dirs["one"], 4, 1),
+                                  _cli(store, dirs["torchrun"], 4, 1,
+                                       torchrun)])
     resumed, = _wait([_cli(store, dirs["resumed"], 4, 2)])
     return {"straight": straight, "resumed": resumed, "dirs": dirs}
 
@@ -462,3 +465,16 @@ def test_cli_two_rank_resume_is_bit_exact(cli_runs):
         assert torch.equal(flat["a"][k], flat["b"][k]), k
     assert [r["loss_gen"] for r in _losses(cli_runs["dirs"]["two"])] == \
         [r["loss_gen"] for r in _losses(cli_runs["dirs"]["resumed"])]
+
+
+def test_cli_two_rank_runs_repeat_bit_for_bit(cli_runs):
+    """Two straight 2-rank runs from one seed: the sha256 of every entry of
+    their step-4 checkpoints equal (``chip_smoke.py`` phase 13 holds the
+    same on the card)."""
+    a, b = (digests(str(cli_runs["dirs"][k] / "checkpoints" / "4" /
+                        "state.pt")) for k in ("two", "two_b"))
+    assert len(a) > 50 and a == b
+    la, lb = ([{k: v for k, v in r.items() if k.startswith("loss")}
+               for r in _losses(cli_runs["dirs"][k])]
+              for k in ("two", "two_b"))
+    assert len(la) == 2 and la == lb
