@@ -86,14 +86,22 @@ Phases, in order; any failure raises and exits non-zero:
      parity_day at n 256 (import, digest, I3D-FVD against the store
      through one kernel launch, comparator), ours vs reference ~0;
      preprocessing two AVIs where OpenCV is installed;
- 15. the timers of utils/benchmarking.py at full width, TF32 off: mug fp32
-     time_single_step (50 steps, warm-up 6, 3 windows), time_cached_scan
-     (k 16, reps 4, 3 windows) and time_generate at 16 and 64 clips; the
-     bf16 recipe's time_cached_scan (k 16, reps 4, 3 windows); scaled's
-     (train.num_devices=1, k 32, reps 1, 2 windows, 32 clips). Each rate
-     finite and positive, best >= median, one rate a window; each scan
-     launches the kernel k * (1 + reps * windows) times, the other timers
-     never; mug fp32's scan median within 0.5-2x of phase 4's trainer;
+ 15. the timers of utils/benchmarking.py at full width, TF32 off, each in
+     a fresh process through the benchmark's watchdog
+     (mocogan_tpu_torch.bench.run_stage), after this process frees its
+     cached card memory: mug fp32 time_single_step (50 steps, warm-up 6,
+     3 windows), time_cached_scan (k 16, reps 4, 3 windows) and
+     time_generate at 16 and 64 clips; the bf16 recipe's time_cached_scan
+     (k 16, reps 4, 3 windows); scaled's (train.num_devices=1, k 32, reps
+     1, 2 windows, 32 clips). Each rate finite and positive, best >=
+     median, one rate a window; each scan launches the kernel
+     k * (1 + reps * windows) times, the other timers never; mug fp32's
+     scan median within 0.5-2x of phase 4's trainer. Then the bench's
+     kernel_verify stage (the kernel against its plain version at the mug
+     and scaled layouts, one launch each, not counted on the path) and
+     its parity stage (generate() at mug's seed-0 init, n 2: two calls
+     bit-equal, card vs a CPU process within 1e-4). A stage that is not
+     ok raises;
  16. determinism: the train CLI (mug fp32, seed 5, 48 steps, TF32 as the
      CLI leaves it) in two fresh processes device-cached and two host-fed,
      one trained to step 32 then resumed to 48 in a third process, and two
@@ -141,6 +149,7 @@ DP_FLOOR_FACTOR = 2     # times the one process's own reordering floor
 DP_BN_TOL = 1e-5        # BN running stats, absolute
 DP_TIMEOUT_S = 300      # the spawned gloo ranks, start to end
 DP_CLI_TIMEOUT_S = 600  # phase 13's train-CLI worlds, start to end
+TIMER_BUDGET_S = 600    # phase 15's bench stages, all together
 # bf16 D logits, card (cuDNN) vs CPU, of the largest |logit|: both round
 # each conv's output to bf16, and a tie rounded apart is a 2^-8 step that
 # four BN stages pass on
@@ -1340,61 +1349,109 @@ def _reference_parity(cfg, run_dir, cfg_cat, run_cat, tmp, dev, smi,
             "parity_day_s": pd_s, "fvd": scores, "i3d_rel_err": i3d_rel}
 
 
-def _timers(sps: float, smi: str, dev) -> dict:
-    """Phase 15: the timers at full width; returns their results and the
-    scans' kernel launches (``launches``)."""
-    from mocogan_tpu_torch import get_config
-    from mocogan_tpu_torch.ops import preproc
-    from mocogan_tpu_torch.utils import benchmarking as bm
+def _timers(sps: float, smi: str) -> dict:
+    """Phase 15: the timers at full width, each in a fresh child process
+    under the benchmark's watchdog (``mocogan_tpu_torch.bench.run_stage``),
+    TF32 off; then the ingest kernel's check and generate() parity in
+    their own stages. Returns the results and the timers' kernel launches
+    (``launches``). Any stage that is not ok raises."""
+    import torch
 
+    from mocogan_tpu_torch import bench
+
+    if os.environ.get("BENCH_OVERRIDES"):
+        raise AssertionError("BENCH_OVERRIDES is set: the bench stages would "
+                             "run at its geometry, not at full width")
     t_phase = time.perf_counter()
-    mug = get_config("mug")
-    bf16 = get_config("mug", **{"model.compute_dtype": "bfloat16",
-                                "train.batch_size": 32,
-                                "train.label_smoothing": 0.1})
-    scaled = get_config("scaled", **{"train.num_devices": 1})
-    # name -> (timer, its arguments, windows, kernel launches it must make)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    budget = bench.Budget(TIMER_BUDGET_S)
+    diag: dict = {}
+    bf16 = {"dtype": "bfloat16", "batch_size": 32,
+            "overrides": {"train.label_smoothing": 0.1}}
+    # name -> (stage, its arguments, {timer: (windows, kernel launches)});
+    # a generate stage's timers are its sizes
     runs = {
-        "mug_fp32_single_step": (bm.time_single_step, (mug, 50, 6, 3), 3, 0),
-        "mug_fp32_cached_scan": (bm.time_cached_scan, (mug, 16, 4, 64, 3), 3,
-                                 16 * (1 + 4 * 3)),
-        "mug_fp32_generate_16": (bm.time_generate, (mug, 16, 10, 3), 3, 0),
-        "mug_fp32_generate_64": (bm.time_generate, (mug, 64, 10, 3), 3, 0),
-        "bf16_recipe_cached_scan": (bm.time_cached_scan,
-                                    (bf16, 16, 4, 64, 3), 3,
-                                    16 * (1 + 4 * 3)),
-        "scaled_cached_scan": (bm.time_cached_scan, (scaled, 32, 1, 32, 2),
-                               2, 32 * (1 + 1 * 2)),
+        "mug_fp32_single_step": (
+            "train", {"dtype": "float32", "steps": 50, "warmup": 6,
+                      "windows": 3}, {"": (3, 0)}),
+        "mug_fp32_cached_scan": (
+            "scan", {"dtype": "float32", "k": 16, "reps": 4, "n_clips": 64,
+                     "windows": 3}, {"": (3, 16 * (1 + 4 * 3))}),
+        "mug_fp32_generate": (
+            "generate", {"sizes": [16, 64], "reps": 10, "windows": 3},
+            {"16": (3, 0), "64": (3, 0)}),
+        "bf16_recipe_cached_scan": (
+            "scan", {**bf16, "k": 16, "reps": 4, "n_clips": 64,
+                     "windows": 3}, {"": (3, 16 * (1 + 4 * 3))}),
+        "scaled_cached_scan": (
+            "scaled", {"batch_size": 64, "k": 32, "reps": 1, "n_clips": 32,
+                       "windows": 2}, {"": (2, 32 * (1 + 1 * 2))}),
+        "kernel_verify": ("kernel_verify", {}, {}),
+        "parity": ("parity", {}, {}),
     }
     out, launches = {}, 0
-    for what, (timer, args, windows, want) in runs.items():
-        preproc.LAUNCHES["resize_norm"] = 0
-        t0 = time.perf_counter()
-        r = timer(*args, device=dev)
-        took = time.perf_counter() - t0
-        got = preproc.LAUNCHES["resize_norm"]
-        unit = "clips/s" if "generate" in what else "steps/s"
-        print(f"[timers] {smi}: {what} {unit} median {r['median']:.3f}, "
-              f"best {r['best']:.3f}, windows {r['windows']}; kernel "
-              f"launches {got}; {took:.1f} s")
-        if not (all(math.isfinite(x) and x > 0 for x in
-                    (r["best"], r["median"], *r["windows"]))
-                and r["best"] >= r["median"]
-                and len(r["windows"]) == windows):
-            raise AssertionError(f"timer {what}: {r}")
-        if got != want:
-            raise AssertionError(f"timer {what}: {got} kernel launches, "
-                                 f"want {want}")
-        out[what] = {**r, "seconds": took}
-        launches += got
+    for what, (stage, args, timers) in runs.items():
+        r = bench.run_stage(stage, {**args, "tf32": "off"}, budget, diag,
+                            what)
+        if r is None:
+            raise AssertionError(f"bench stage {what}: {diag[what]}")
+        took, got = diag[what]["seconds"], r["kernel_launches"]
+        work = r["seconds_in_stage"]
+        peak = r["max_memory_allocated"] / 1e9
+        if r["tf32"] != {"mode": "off", "matmul": False, "cudnn": False}:
+            raise AssertionError(f"bench stage {what}: TF32 {r['tf32']}")
+        for sub, (windows, want) in timers.items():
+            t = r["clips_per_sec"][sub] if sub else r
+            name = f"{what}_{sub}" if sub else what
+            unit = "clips/s" if sub else "steps/s"
+            print(f"[timers] {smi}: {name} {unit} median {t['median']:.3f}, "
+                  f"best {t['best']:.3f}, windows {t['windows']}; kernel "
+                  f"launches {got}; peak memory {peak:.2f} GB; {took:.1f} s "
+                  f"in a fresh process, {work:.1f} s of it in the stage")
+            if not (all(math.isfinite(x) and x > 0 for x in
+                        (t["best"], t["median"], *t["windows"]))
+                    and t["best"] >= t["median"]
+                    and len(t["windows"]) == windows):
+                raise AssertionError(f"timer {name}: {t}")
+            if got != want:
+                raise AssertionError(f"timer {name}: {got} kernel launches, "
+                                     f"want {want}")
+            out[name] = {"best": t["best"], "median": t["median"],
+                         "windows": t["windows"], "seconds": took,
+                         "stage_seconds": work, "peak_gb": peak}
+        if timers:
+            launches += got
+        else:
+            out[what] = {**r, "seconds": took}
+    # the check launches the kernel once a layout to compare it with its
+    # plain version: those launches are not the path's
+    kv, par = out["kernel_verify"], out["parity"]
+    print(f"[timers] {smi}: kernel_verify max_abs_err mug "
+          f"{kv['max_abs_err_mug']:.3e}, scaled {kv['max_abs_err_scaled']:.3e}"
+          f" (tol {KERNEL_TOL}), {kv['kernel_launches']} launches; parity "
+          f"digest {par['digest'][:16]}, two calls bit-equal "
+          f"{par['deterministic']}, card vs CPU max_abs_err "
+          f"{par['max_abs_err_vs_cpu']:.3e} (tol {GENERATE_TOL}); "
+          f"{kv['seconds']:.1f} s and {par['seconds']:.1f} s in fresh "
+          f"processes, {kv['seconds_in_stage']:.1f} s and "
+          f"{par['seconds_in_stage']:.1f} s of them in the stages (the "
+          f"CPU rerun {par['cpu_rerun_seconds']:.1f} s)")
+    if not (kv["verified"] and kv["max_abs_err"] <= KERNEL_TOL
+            and kv["kernel_launches"] == 2):
+        raise AssertionError(f"bench stage kernel_verify: {kv}")
+    if not (par["deterministic"] and par["kernel_launches"] == 0
+            and par["max_abs_err_vs_cpu"] <= GENERATE_TOL):
+        raise AssertionError(f"bench stage parity: {par}")
     ratio = out["mug_fp32_cached_scan"]["median"] / sps
+    secs = time.perf_counter() - t_phase
     print(f"[timers] mug fp32 scan median / phase 4's trainer {sps:.3f} "
           f"steps/s = {ratio:.3f} (must lie in 0.5-2); phase took "
-          f"{time.perf_counter() - t_phase:.1f} s")
+          f"{secs:.1f} s")
     if not 0.5 <= ratio <= 2.0:
         raise AssertionError(f"mug fp32 scan median {ratio:.3f} x phase 4's "
                              f"steps/s")
-    return {**out, "launches": launches}
+    return {**out, "phase_seconds": secs, "launches": launches}
 
 
 def _determinism(store, cat_dir, sc_dir, pool, lengths, smi, dev,
@@ -2024,7 +2081,7 @@ def main() -> int:
                                 smi)
 
         # ---- 15. the timers --------------------------------------------------
-        timers = _timers(sps, smi, dev)
+        timers = _timers(sps, smi)
 
         # ---- 16. determinism -------------------------------------------------
         det = _determinism(cfg.data.data_dir, cat_dir, sc_dir, pool, lengths,

@@ -3,6 +3,7 @@
 entry points refuse to run on a missing GPU unless asked for the CPU."""
 
 import ast
+import json
 import os
 
 import pytest
@@ -58,9 +59,9 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
     assert not bad, f"{path} imports {bad}"
 
 
-def test_entry_points_refuse_a_missing_gpu(monkeypatch, tmp_path):
-    from mocogan_tpu_torch import (eval_fvd, get_config, parity_day, sample,
-                                   scaling_dossier)
+def test_entry_points_refuse_a_missing_gpu(monkeypatch, tmp_path, capsys):
+    from mocogan_tpu_torch import (bench, eval_fvd, get_config, measure_perf,
+                                   parity_day, sample, scaling_dossier)
     from mocogan_tpu_torch.eval import fvd, i3d, import_chainer, parity
     from mocogan_tpu_torch.eval.panel import PanelRunner
     from mocogan_tpu_torch.parallel import mesh
@@ -101,6 +102,22 @@ def test_entry_points_refuse_a_missing_gpu(monkeypatch, tmp_path):
                  lambda: benchmarking.time_generate(cfg, 4),
                  lambda: scaling_dossier.main(["--out",
                                                str(tmp_path / "dossier")]),
-                 lambda: timer_turns.main([ROOT])):
+                 lambda: timer_turns.main([ROOT]),
+                 lambda: measure_perf.main([])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+    # the benchmark's parent touches no card: its preflight child finds
+    # none, and the line says so with exit code 1
+    cache = tmp_path / "cpu_cache.json"
+    cache.write_text(json.dumps({"mug_b16": 0.002}))
+    for k, v in {"BENCH_CPU_CACHE": str(cache), "CUDA_VISIBLE_DEVICES": "",
+                 **{f"BENCH_{f}": "0" for f in (
+                     "BF16", "SCAN", "BATCHES", "GENERATE", "SCALED",
+                     "PARITY")}}.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.delenv("BENCH_OVERRIDES", raising=False)
+    assert bench.main(["--device", "cuda"]) == 1
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert line["value"] is None and line["extra"]["gpu_unresponsive"]
+    assert "no CUDA device" in line["extra"]["stages"]["preflight"]["error"]
+    assert set(line["extra"]["stages"]) == {"cpu_oracle", "preflight"}
