@@ -18,8 +18,10 @@ which is what ``bridge.py`` uses. What differs from the obvious torch call:
   * Every conv pass repeats bit for bit on the card, with no global flag
     (``_Conv``): the forward runs cuDNN's forward algorithms, the data
     gradient (and a transposed conv's forward) ``_dgrad``'s route, the
-    weight gradient cuDNN's deterministic algorithm scoped to that call.
-    The bias is added after the conv in every dtype.
+    weight gradient ``_wgrad``'s: GEMMs on im2col columns for fp32 convs
+    on few input channels without TF32, else cuDNN's deterministic
+    algorithm scoped to that call. The bias is added after the conv in
+    every dtype.
   * Compute dtype (``dtype``, fp32 or bf16): the input and the weight are
     cast where the JAX package's ``_cast`` casts them; params stay fp32.
     JAX adds a bias *after* the conv or product, so under bf16 a layer
@@ -121,10 +123,11 @@ def _backward_cudnn(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     return g[0] if data else g[1]
 
 
-def _wgrad(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
-           stride: Sequence[int], pads: Sequence[Tuple[int, int]]
-           ) -> torch.Tensor:
-    """The weight gradient of y = conv(pad(x), w, stride)."""
+def _wgrad_cudnn(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
+                 stride: Sequence[int], pads: Sequence[Tuple[int, int]]
+                 ) -> torch.Tensor:
+    """The weight gradient of y = conv(pad(x), w, stride) from cuDNN's
+    deterministic backward-filter algorithms."""
     x, padding = _padded(x, pads)
     return _backward_cudnn(dy, x, w, stride, padding, data=False)
 
@@ -177,7 +180,7 @@ def _dgrad_cudnn(dy: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
     return g if sym else _crop(g, pads, size)
 
 
-_FEW_CHANNELS = 4   # data gradients onto the frames (RGB) and alike
+_FEW_CHANNELS = 4   # data and weight gradients of convs on the frames (RGB)
 
 
 def _dgrad(dy: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
@@ -200,6 +203,64 @@ def _dgrad(dy: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
     return _dgrad_subpixel(dy, w, stride, pads, size)
 
 
+# 16 MiB: D_V conv0's columns are 12.6 MB a sample, so it runs one sample a
+# chunk, a single GEMM whose sum over 16384 positions cuBLAS splits itself;
+# with a few samples a chunk, cuBLAS's batched kernel does not split it.
+_WGRAD_CHUNK_BYTES = 16 << 20
+
+
+def _wgrad_gemm(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
+                stride: Sequence[int], pads: Sequence[Tuple[int, int]]
+                ) -> torch.Tensor:
+    """The weight gradient of y = conv(pad(x), w, stride) as batched GEMMs
+    on im2col columns: dw[o, (c, k)] = sum over samples n and output
+    positions p of dy[n, o, p] * pad(x)[n, c, p * s + k].
+
+    The patches are ``unfold`` views of pad(x). Chunks of samples of equal
+    size, at most ``_WGRAD_CHUNK_BYTES`` of columns each (one sample at
+    least), are copied in turn to (n, P, C * prod(k)) columns and
+    multiplied by dy's (n, O, P) with ``bmm``: one (O, C * prod(k))
+    partial a sample, summed over the samples at the end. No atomics: the
+    order of every sum depends on the shapes alone."""
+    nd = len(stride)
+    n, c = x.shape[:2]
+    if any(lo or hi for lo, hi in pads):
+        x = F.pad(x, _flat_pads(pads))
+    for d, (k, s) in enumerate(zip(w.shape[2:], stride)):
+        x = x.unfold(2 + d, k, s)
+    cols = x.permute(0, *range(2, 2 + nd), 1, *range(2 + nd, 2 + 2 * nd))
+    p, ck = math.prod(dy.shape[2:]), c * math.prod(w.shape[2:])
+    dy = dy.reshape(n, w.shape[0], p)
+    parts = dy.new_empty(n, w.shape[0], ck)
+    per = max(1, _WGRAD_CHUNK_BYTES // (p * ck * dy.element_size()))
+    chunks = -(-n // per)
+    per = -(-n // chunks)
+    for a in range(0, n, per):
+        b = min(n, a + per)
+        torch.bmm(dy[a:b], cols[a:b].reshape(b - a, p, ck), out=parts[a:b])
+    return parts.sum(0).view(w.shape)
+
+
+def _wgrad(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
+           stride: Sequence[int], pads: Sequence[Tuple[int, int]]
+           ) -> torch.Tensor:
+    """The weight gradient of y = conv(pad(x), w, stride). In fp32 on CUDA
+    cores (neither cuDNN's nor the matmuls' TF32 allowed), cuDNN's
+    deterministic algorithm for convs onto few input channels is its
+    grouped direct kernel, and ``_wgrad_gemm`` takes it there: 12.70 ->
+    0.65 ms a call for D_V's first conv, 1.74 -> 0.34 for G's last
+    transposed conv, 0.22 -> 0.12 for D_I's first conv (the mug layers at
+    batch 16, ``utils/conv_audit.py`` on an H100). On wider inputs the
+    GEMMs lose to cuDNN in most layers (D_V conv1 1.59 against 1.14 ms),
+    and with bf16 or TF32 cuDNN runs on tensor cores, so its deterministic
+    algorithm takes every other weight gradient."""
+    if (dy.dtype == torch.float32 and w.shape[1] <= _FEW_CHANNELS
+            and not torch.backends.cudnn.allow_tf32
+            and not torch.backends.cuda.matmul.allow_tf32):
+        return _wgrad_gemm(x, dy, w, stride, pads)
+    return _wgrad_cudnn(x, dy, w, stride, pads)
+
+
 class _Conv(torch.autograd.Function):
     """A SAME conv, or (given its output `size`) the transposed conv that
     is a conv's data gradient, with every pass on a route that repeats bit
@@ -209,9 +270,10 @@ class _Conv(torch.autograd.Function):
         forward algorithm (``_conv_fwd``);
       * a conv's data gradient and a transposed conv's forward:
         ``_dgrad``;
-      * either weight gradient: cuDNN's deterministic backward-filter
-        algorithm (``_wgrad``); a transposed conv's is the conv's, with
-        its output gradient as the conv's input.
+      * either weight gradient: ``_wgrad``, GEMMs on im2col columns or
+        cuDNN's deterministic backward-filter algorithm; a transposed
+        conv's is the conv's, with its output gradient as the conv's
+        input.
 
     cuDNN reads its flags when each kernel is launched, which is why the
     routes live in the backward itself. `pads` are the conv's (lo, hi) per

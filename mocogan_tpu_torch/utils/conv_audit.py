@@ -21,12 +21,13 @@ or ``wgrad`` (the weight's). The line holds:
     gradients are bit-equal, and the (layer, pass) records that differ.
   * ``replay``: each (layer, pass), with its shapes and the calls a step
     makes, on the tensors its first call recorded, through every route
-    that computes it: ``plain`` (cuDNN's default
-    algorithm), ``cudnn_det`` (its deterministic one), ``subpixel`` (one
-    stride-1 forward conv), ``phases`` (one forward conv per phase) and
-    ``layer`` (what the layer runs): whether two calls are bit-equal, the
-    kernels of one call (profiler), device ms per call (CUDA events) and
-    ms per 16 steps (ms x calls a step x 16).
+    that computes it: ``plain`` (cuDNN's default algorithm),
+    ``cudnn_det`` (its deterministic one), for data gradients
+    ``subpixel`` (one stride-1 forward conv) and ``phases`` (one forward
+    conv per phase), for weight gradients ``gemm`` (batched GEMMs on
+    im2col columns), and ``layer`` (what the layer runs): whether two
+    calls are bit-equal, the kernels of one call (profiler), device ms
+    per call (CUDA events) and ms per 16 steps (ms x calls a step x 16).
   * ``nonconv``: one ``train_step`` under
     ``torch.use_deterministic_algorithms(True, warn_only=True)``, a
     diagnostic the train path never sets: the warnings it raises.
@@ -222,9 +223,11 @@ def _routes(op: str, rec, big, small) -> Dict[str, callable]:
     if op == "conv":
         return {"plain": lambda: layers._conv_fwd(big, w, st, pads)}
     if op == "wgrad":
-        return {"plain": _plain(lambda: layers._wgrad(big, small, w, st,
-                                                      pads)),
-                "cudnn_det": lambda: layers._wgrad(big, small, w, st, pads),
+        return {"plain": _plain(lambda: layers._wgrad_cudnn(big, small, w,
+                                                            st, pads)),
+                "cudnn_det": lambda: layers._wgrad_cudnn(big, small, w, st,
+                                                         pads),
+                "gemm": lambda: layers._wgrad_gemm(big, small, w, st, pads),
                 "layer": lambda: layers._wgrad(big, small, w, st, pads)}
     return {"plain": _plain(lambda: layers._dgrad_cudnn(small, w, st, pads,
                                                         size)),

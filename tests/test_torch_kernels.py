@@ -1,17 +1,18 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+conv routes that must repeat bit for bit, on the card.
 
 These tests need a CUDA card and skip without one. They import neither JAX
 nor the JAX package, so on a machine without JAX they run with
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
-Tolerance 1e-5 absolute: outputs lie in [-1, 1] and are sums of
-non-negative fp32 terms taken in another order.
+Tolerance 1e-5 absolute for the kernel: outputs lie in [-1, 1] and are
+sums of non-negative fp32 terms taken in another order.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from mocogan_tpu_torch.ops import preproc, sampling
+from mocogan_tpu_torch.ops import layers, preproc, sampling
 
 ATOL = 1e-5
 
@@ -162,3 +163,37 @@ def test_mug_step_gradients_repeat(cuda, tf32):
         for name, g in grads.items():
             assert torch.equal(g, g2[net][name]), f"{net}.{name}"
     assert all(torch.equal(v, m2[k]) for k, v in m1.items())
+
+
+@pytest.mark.gpu
+def test_wgrad_gemm_at_dv_conv0(cuda, monkeypatch):
+    """D_V conv0's fp32 weight gradient at the mug shape (x (16, 3, 16, 64,
+    64), k 4, stride (1, 2, 2), time pads (1, 2)): the layer takes the GEMM
+    route with TF32 off; it agrees with cuDNN's deterministic algorithm
+    within 1e-5 of the largest entry (fp32 sums of 262144 products in
+    another order), two calls are bit-equal, and its peak allocation
+    exceeds cuDNN's route's by no more than the chunk budget."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(16, 3, 16, 64, 64, generator=gen).to(cuda)
+    w = (torch.randn(64, 3, 4, 4, 4, generator=gen) * 0.02).to(cuda)
+    dy = torch.randn(16, 64, 16, 32, 32, generator=gen).to(cuda)
+    stride = (1, 2, 2)
+    pads = tuple(layers.same_pads(n, k, s) for n, k, s in
+                 zip(x.shape[2:], w.shape[2:], stride))
+    assert pads == ((1, 2), (1, 1), (1, 1))
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn(x, dy, w, stride, pads)
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    want, grow_cudnn = peak(layers._wgrad_cudnn)
+    got, grow = peak(layers._wgrad)
+    assert torch.equal(got, layers._wgrad_gemm(x, dy, w, stride, pads))
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= 1e-5, err
+    assert grow - grow_cudnn <= layers._WGRAD_CHUNK_BYTES, (grow, grow_cudnn)
